@@ -1,0 +1,64 @@
+"""flax variables -> the port's ``state_dict`` (VAD family).
+
+Takes the JAX package's variables as nested mappings of numpy arrays
+(``{'params': ..., 'batch_stats': ...}``, e.g. after ``jax.device_get``)
+and imports neither JAX nor ``challenge_tpu``. Conv kernels go from HWIO to
+OIHW, Dense kernels from [in, out] to [out, in]; BatchNorm scale/bias/mean/
+var become weight/bias/running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_BN = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
+       'var': 'running_var'}
+_RULES = [
+    (r'ConvMPBlock_(\d+)/Conv_(\d+)/(kernel|bias)', 'blocks.{0}.convs.{1}'),
+    (r'ConvMPBlock_(\d+)/BatchNorm_(\d+)/BatchNorm_0/(\w+)',
+     'blocks.{0}.bns.{1}'),
+    (r'Dense_0/(kernel|bias)', 'td'),
+    (r'FullyConnectedLayer_(\d+)/Dense_0/(kernel|bias)', 'fcs.{0}.dense'),
+    (r'FullyConnectedLayer_(\d+)/BatchNorm_0/BatchNorm_0/(\w+)',
+     'fcs.{0}.bn'),
+]
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def _torch_entry(path: str, leaf: str, arr: np.ndarray):
+    for pattern, target in _RULES:
+        m = re.fullmatch(pattern, path)
+        if m is None:
+            continue
+        module = target.format(*m.groups())
+        if leaf == 'kernel':
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            return f'{module}.weight', arr
+        if '.bn' in module:
+            return f'{module}.{_BN[leaf]}', arr
+        return f'{module}.{leaf}', arr
+    raise KeyError(f'no port counterpart for flax variable {path!r}')
+
+
+def flax_to_state_dict(variables: Mapping) -> dict:
+    """Every leaf of ``variables`` as a ``state_dict`` entry (float32 CPU
+    tensors). Collections ('params', 'batch_stats') are optional, so an
+    optimizer moment tree passed as ``{'params': tree}`` maps too."""
+    out = {}
+    for collection in ('params', 'batch_stats'):
+        for path, arr in _leaves(variables.get(collection, {})):
+            key, arr = _torch_entry('/'.join(path), path[-1], arr)
+            out[key] = torch.from_numpy(
+                np.array(arr, dtype=np.float32, order='C'))
+    return out

@@ -1,0 +1,137 @@
+"""Shared model building blocks (counterpart: ``challenge_tpu/models/layers.py``).
+
+Layouts are PyTorch's: convolutions and their BatchNorms take NCHW, the
+head's Dense layers and BatchNorms take [B, T, D]. Keras parity:
+
+* BatchNorm has Keras' momentum 0.99 and eps 1e-3 and, like flax with
+  ``use_fast_variance=True``, normalizes with the biased
+  ``E[x^2] - E[x]^2`` (clipped at 0) and stores that same biased value in
+  the running variance; ``nn.BatchNorm2d`` would store the unbiased one.
+* A conv or Dense layer that feeds a BatchNorm has no bias.
+* 'SAME' 2x2/2 max pooling pads odd sizes at the end with -inf
+  (``ceil_mode=True``): 5 -> 3.
+* Weights start from flax's defaults: LeCun normal (truncated) kernels,
+  zero biases, BN scale 1 and bias 0, running mean 0 and variance 1.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  gen: Optional[torch.Generator] = None) -> None:
+    """flax's ``lecun_normal``: truncated normal (+-2 std) with variance
+    1/fan_in after truncation."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=gen)
+
+
+class BatchNorm(nn.Module):
+    """Keras-default BatchNormalization over every axis but ``feature_dim``."""
+
+    def __init__(self, features: int, feature_dim: int = 1,
+                 momentum: float = 0.99, eps: float = 1e-3):
+        super().__init__()
+        self.feature_dim = feature_dim
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer('running_mean', torch.zeros(features))
+        self.register_buffer('running_var', torch.ones(features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        dim = self.feature_dim % x.ndim
+        axes = tuple(i for i in range(x.ndim) if i != dim)
+        shape = [1] * x.ndim
+        shape[dim] = x.shape[dim]
+        if self.training:
+            mean = x.mean(dim=axes)
+            var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = x - mean.reshape(shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return y * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+class ConvMPBlock(nn.Module):
+    """num_convs x (Conv3x3 'SAME' -> BN -> ReLU) -> MaxPool 2x2/2 'SAME'
+    (reference: sj_train.py:191-201), NCHW."""
+
+    def __init__(self, in_ch: int, fsize: int, num_convs: int = 2):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            nn.Conv2d(in_ch if i == 0 else fsize, fsize, 3, padding=1,
+                      bias=False)
+            for i in range(num_convs))
+        self.bns = nn.ModuleList(BatchNorm(fsize) for _ in range(num_convs))
+
+    def reset_parameters(self, gen=None) -> None:
+        for conv, bn in zip(self.convs, self.bns):
+            lecun_normal_(conv.weight, conv.weight[0].numel(), gen)
+            bn.reset_parameters()
+
+    def forward(self, x):
+        for conv, bn in zip(self.convs, self.bns):
+            x = F.relu(bn(conv(x)))
+        return max_pool_same(x)
+
+
+class FullyConnectedLayer(nn.Module):
+    """Dense -> [BN] -> activation on [B, T, D] (reference: sj_train.py:204-211)."""
+
+    def __init__(self, in_features: int, nodes: int, act=F.relu,
+                 use_bn: bool = True):
+        super().__init__()
+        self.dense = nn.Linear(in_features, nodes, bias=not use_bn)
+        self.bn = BatchNorm(nodes, feature_dim=-1) if use_bn else None
+        self.act = act
+
+    def reset_parameters(self, gen=None) -> None:
+        lecun_normal_(self.dense.weight, self.dense.in_features, gen)
+        if self.dense.bias is not None:
+            nn.init.zeros_(self.dense.bias)
+        if self.bn is not None:
+            self.bn.reset_parameters()
+
+    def forward(self, x):
+        x = self.dense(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return self.act(x)
+
+
+def max_pool_same(x):
+    """Keras 'SAME' 2x2/2 max pooling on NCHW."""
+    return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
+def avg_pool_same(x, window: int, stride: int):
+    """Keras 'SAME' AveragePooling1D over the time axis of [B, T, C]; edge
+    windows divide by their in-bounds count, not the window size."""
+    t = x.shape[1]
+    n_out = -(-t // stride)
+    pad = max((n_out - 1) * stride + window - t, 0)
+    lo, hi = pad // 2, pad - pad // 2
+    summed = F.pad(x.transpose(1, 2), (lo, hi)).unfold(-1, window, stride)
+    ones = F.pad(x.new_ones((1, 1, t)), (lo, hi)).unfold(-1, window, stride)
+    return (summed.sum(-1) / ones.sum(-1)).transpose(1, 2)

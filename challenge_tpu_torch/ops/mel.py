@@ -1,0 +1,46 @@
+"""Mel filterbank (counterpart: ``challenge_tpu/ops/mel.py``).
+
+A numpy copy of ``tf.signal.linear_to_mel_weight_matrix(n_mels, 257, 16000)``
+with TF's default band edges (125 Hz, 3800 Hz), built once on the host. The
+projection itself is a plain matmul at the call site.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+
+def _hertz_to_mel(f):
+    return 2595.0 * np.log10(1.0 + f / 700.0)
+
+
+@functools.lru_cache(maxsize=16)
+def mel_filterbank(num_mel_bins: int = 80, num_spectrogram_bins: int = 257,
+                   sample_rate: int = 16000, lower_edge_hertz: float = 125.0,
+                   upper_edge_hertz: float = 3800.0) -> np.ndarray:
+    """float32 [num_spectrogram_bins, num_mel_bins]; the DC row is zero
+    (TF's ``bands_to_zero = 1``). Intermediates are float32 like TF's."""
+    bands_to_zero = 1
+    nyquist = sample_rate / 2.0
+    linear_freqs = np.linspace(0.0, nyquist, num_spectrogram_bins,
+                               dtype=np.float32)[bands_to_zero:]
+    spectrogram_bins_mel = _hertz_to_mel(linear_freqs).astype(np.float32)[:, None]
+
+    edges = np.linspace(np.float32(_hertz_to_mel(lower_edge_hertz)),
+                        np.float32(_hertz_to_mel(upper_edge_hertz)),
+                        num_mel_bins + 2, dtype=np.float32)
+    lower_edge_mel = edges[None, :num_mel_bins]
+    center_mel = edges[None, 1:num_mel_bins + 1]
+    upper_edge_mel = edges[None, 2:]
+
+    lower_slopes = (spectrogram_bins_mel - lower_edge_mel) / (
+        center_mel - lower_edge_mel)
+    upper_slopes = (upper_edge_mel - spectrogram_bins_mel) / (
+        upper_edge_mel - center_mel)
+    weights = np.maximum(0.0, np.minimum(lower_slopes, upper_slopes))
+    weights = np.pad(weights, [[bands_to_zero, 0], [0, 0]])
+    weights = weights.astype(np.float32)
+    weights.setflags(write=False)      # shared through the cache
+    return weights

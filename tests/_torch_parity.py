@@ -1,0 +1,155 @@
+"""Shared inputs for the parity tests of ``challenge_tpu_torch`` against
+``challenge_tpu`` (tests/test_torch_*.py).
+
+Everything random is made here with numpy and handed to both packages: the
+two frameworks' generators give different numbers from the same seed.
+JAX's batch draws are taken at the synthesis kernel's boundary so that the
+port can be fed exactly what JAX drew.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+N_FRAME, N_MELS, BATCH = 64, 32, 4
+
+
+def small_sources(seed: int = 0):
+    """(backgrounds, voices, int labels, noises) as [257, T, 4] float32
+    lists. One background is shorter than N_FRAME, so the background bank is
+    cyclically tiled; voice and noise lengths vary, so clip banks have zero
+    tails and per-sample effective lengths differ."""
+    rng = np.random.default_rng(seed)
+
+    def specs(lengths):
+        return [rng.standard_normal((257, int(t), 4)).astype(np.float32)
+                for t in lengths]
+    return (specs((94, N_FRAME // 3, 70)), specs((40, 23, 31, 40, 12)),
+            rng.integers(0, 30, size=5), specs((20, 9, 14)))
+
+
+def strip_flat(flat, chan: int, freq: int):
+    """[..., chan * f_r] channel-major flat columns -> [..., chan * freq]:
+    drops the JAX bank's 128-lane column padding."""
+    flat = np.asarray(flat)
+    f_r = flat.shape[-1] // chan
+    planes = flat.reshape(flat.shape[:-1] + (chan, f_r))[..., :freq]
+    return planes.reshape(flat.shape[:-1] + (chan * freq,))
+
+
+def jax_draws(banks, key, batch_size: int = BATCH, n_frame: int = N_FRAME,
+              **kw):
+    """JAX's ``sample_batch(..., use_pallas=True, layout='tfc',
+    magnitude='flat')`` draws, taken at the synthesis kernel's boundary
+    (the kernel itself is not run: its arguments are recorded and zeros
+    returned), with the per-voice labels. Returns a dict of numpy arrays."""
+    import challenge_tpu.data.mixture as jmix
+    import challenge_tpu.ops.pallas_synth as ps
+
+    rec = {}
+
+    def synth(n_frame_, bgflat, *args, **kw):
+        (rec['bidx'], rec['boff'], _, rec['vidx'], rec['vshift'], rec['vw'],
+         _, rec['nidx'], rec['nshift'], rec['nw'], rec['vlens'],
+         rec['nlens']) = args[:12]
+        assert kw['magnitude'] is True
+        return jnp.zeros((args[0].shape[0], n_frame_, bgflat.shape[-1] // 2))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ps, 'synthesize_windows', synth)
+
+        @jax.jit
+        def run(key, banks):
+            # unjitted sample_batch, so the recorded values are run()'s
+            _, label = jmix.sample_batch.__wrapped__(
+                key, banks, batch_size, n_frame, use_pallas=True,
+                layout='tfc', magnitude='flat', **kw)
+            return dict(rec, label=label)
+        out = jax.device_get(run(key, banks))
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def jax_magnitude(banks, d, n_frame: int = N_FRAME):
+    """The JAX Pallas kernel (interpret mode) in magnitude mode on the
+    draws ``d`` of :func:`jax_draws`: [B, n_frame, 2 * f_r] flat."""
+    from challenge_tpu.ops.pallas_synth import synthesize_windows
+    return np.asarray(synthesize_windows(
+        n_frame, banks.backgrounds.flat, d['bidx'], d['boff'],
+        banks.voices.flat, d['vidx'], d['vshift'], d['vw'],
+        banks.noises.flat, d['nidx'], d['nshift'], d['nw'],
+        d['vlens'], d['nlens'], magnitude=True, interpret=True))
+
+
+def jax_features(cfg, mag, label, key):
+    """JAX's ``make_feature_fn(cfg)`` training chain on its fused-magnitude
+    branch, fed the given ``sample_batch`` output: flat magnitude ``mag``
+    [B, T, 2 * f_r] and per-voice labels [B, V, T, C]. Returns a dict of
+    numpy arrays: the features ``x``, ``y``, the mel before (``mel_raw``)
+    and after (``mel``) minmax, and the SpecAugment masks the chain drew."""
+    import challenge_tpu.data.pipeline as jpipe
+    from challenge_tpu.ops.augment import batch_mask_keep
+
+    rec = {}
+    orig_minmax = jpipe.minmax
+
+    def minmax(x):
+        out = orig_minmax(x)
+        rec['mel_raw'], rec['mel'] = x, out
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpipe, 'sample_batch',
+                   lambda *a, **kw: (jnp.asarray(mag), jnp.asarray(label)))
+        mp.setattr(jpipe, 'minmax', minmax)
+        fn = jpipe.make_feature_fn(cfg, training=True, jit=False,
+                                   n_classes=label.shape[-1],
+                                   use_pallas=False, fused_mag=True)
+
+        @jax.jit
+        def run(key):
+            x, y = fn(key, None)
+            return dict(rec, x=x, y=y)
+        out = jax.device_get(run(key))
+    # the masks make_feature_fn draws from its aug key (pipeline.py:191-202)
+    _, k_aug, _ = jax.random.split(key, 3)
+    k_t, k_f = jax.random.split(k_aug)
+    out['tmask'] = batch_mask_keep(k_t, cfg.batch_size, cfg.n_frame,
+                                   max_mask_size=24, n_mask=6)
+    out['fmask'] = batch_mask_keep(k_f, cfg.batch_size, 257,
+                                   max_mask_size=16, n_mask=1)
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def port_draws(rec, n_frame: int = N_FRAME):
+    """The port's Draws from a :func:`jax_draws` record."""
+    from challenge_tpu_torch.data.mixture import Draws
+    t = {k: torch.from_numpy(np.array(rec[k])) for k in (
+        'bidx', 'boff', 'vidx', 'vshift', 'vw', 'vlens', 'nidx', 'nshift',
+        'nw', 'nlens')}
+    return Draws(n_frame, **t)
+
+
+def vad_variables(module, input_shape, seed: int = 0):
+    """flax variables of ``module`` filled from numpy: kernels scaled by
+    1/sqrt(fan_in), BN scales near 1, biases and running statistics away
+    from their initial values so that every bridged tensor matters."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1,) + tuple(input_shape)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == 'kernel':
+            fan_in = int(np.prod(shape[:-1]))
+            v = rng.standard_normal(shape) / np.sqrt(fan_in)
+        elif name == 'scale':
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == 'var':
+            v = rng.uniform(0.5, 1.5, shape)
+        else:                                   # bias, mean
+            v = 0.1 * rng.standard_normal(shape)
+        return np.asarray(v, np.float32)
+    return jax.tree_util.tree_map_with_path(fill, shapes)
