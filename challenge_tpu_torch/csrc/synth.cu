@@ -1,32 +1,43 @@
-// Mixture synthesis with the magnitude computed in the kernel, float32 banks.
+// Mixture synthesis with the magnitude computed in the kernel, for float32,
+// bfloat16 and int8 banks.
 //
 // Replaces challenge_tpu/ops/pallas_synth.py::_kernel in its magnitude mode
-// (synthesize_windows(..., magnitude=True) with float32 banks), the one TPU
-// kernel on the training path.
+// (synthesize_windows(..., magnitude=True)): with float32 banks (mode B1,
+// synth_mag_f32) and with bfloat16 or int8 banks (mode B3, synth_mag_bf16
+// and synth_mag_int8), the one TPU kernel on the training path.
 //
 // What it computes, per sample b and window row t in [0, n_frame):
-//   acc  = bg[bidx[b], boff[b] + t, :]                      (flat row, F cols)
+//   acc  = float(bg[bidx[b], boff[b] + t, :])               (flat row, F cols)
+//          (int8 banks: acc = float(q_bg) * bgscale[b])
 //   for each voice slot k, then each noise slot k, in slot order, w != 0:
-//     j = t - shift[b, k];  if 0 <= j < len[b, k]:  acc += w[b, k] * clip[j, :]
+//     j = t - shift[b, k];  if 0 <= j < len[b, k]:  acc += w[b, k] * float(clip[j, :])
 //   out[b, t, m] = sqrt(acc[m]^2 + acc[F/2 + m]^2)          m in [0, F/2)
 // The flat layout is channel-major (column c*f + freq), so the real planes
 // are the first half of the columns and the imaginary planes the second.
-// Clip rows that land outside [0, n_frame) are dropped.
+// Clip rows that land outside [0, n_frame) are dropped. For int8 banks the
+// caller folds each clip's dequantization scale into its weight
+// (w * flat_scale[idx]) and passes the per-sample background scales. The
+// output is float32 for float32 banks and bfloat16 for the other two.
 //
-// Exactness: the sum is an ordered float32 sum. Each step is a rounded
-// multiply then a rounded add (__fmul_rn / __fadd_rn, which nvcc never
-// contracts into an FMA), in the same order as the JAX kernel and as the
-// plain PyTorch version in ops/synth.py, so the three agree bit for bit.
-// sqrtf is the IEEE square root (no --use_fast_math).
+// Exactness: the sum is an ordered float32 sum whatever the bank type:
+// each element is upcast exactly, then every step is a rounded multiply and
+// a rounded add (__fmul_rn / __fadd_rn, which nvcc never contracts into an
+// FMA), in the same order as the JAX kernel and as the plain PyTorch
+// version in ops/synth.py. sqrtf is the IEEE square root (no
+// --use_fast_math); a bfloat16 output is that float32 root rounded once
+// more, to nearest even (__float2bfloat16_rn). Kernel and plain version
+// agree bit for bit.
 //
 // Bound: bytes. Per call it must read each sample's background window
-// (n_frame x F floats), the rows of each active clip that land in the
-// window and the slot tables, and write the magnitude (n_frame x F/2
-// floats), each once; chip_smoke.py's synth_work counts them from the
-// draws. On the main path's draws (B=12, n_frame=512, F=4*257, 7 voice and
-// 2 noise slots) that is 51.7 MB a call, a bound of 15.4 us at 3.35 TB/s.
-// The arithmetic (2 flops per element per clip, 4 and a root per
-// magnitude) is far below the card's float32 rate.
+// (n_frame x F elements of the bank type), the rows of each active clip
+// that land in the window and the slot tables, and write the magnitude
+// (n_frame x F/2 elements of the output type), each once; chip_smoke.py's
+// synth_work counts them from the draws. On the main path's draws (B=12,
+// n_frame=512, F=4*257, 7 voice and 2 noise slots) that is about 51.7 MB a
+// call for float32 banks, 26 MB for bfloat16 and 16 MB for int8, bounds of
+// about 15.4, 7.7 and 4.8 us at 3.35 TB/s. The arithmetic (2 flops per
+// element per clip, 4 and a root per magnitude) is far below the card's
+// float32 rate.
 //
 // Design. One block per (row tile of kRows window rows, sample). Thread 0
 // reads the sample's slot table (indices, shifts, lengths, weights) and
@@ -37,9 +48,18 @@
 // the TPU: it never goes to device memory. No atomics, no shared
 // accumulator; the order of the sum is fixed. Clip rows are read from
 // device memory once per tile that needs them; staging them in shared
-// memory (cp.async / TMA) is left for later work.
+// memory (cp.async / TMA) is left for later work. With 1- and 2-byte bank
+// elements one element per thread per load is a 32- or 64-byte warp
+// transaction, far from what the memory system needs to reach its rate,
+// and the time is set by the chain of dependent row loads, not by the
+// bytes: on an H100 the bf16 and int8 kernels take about as long as the
+// f32 one, about 5 and 8 times their bounds against 3 (PERF.md). Wider
+// loads are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -47,17 +67,32 @@ constexpr int kThreads = 256;
 constexpr int kRows = 8;        // window rows per block
 constexpr int kMaxSlots = 32;   // voice + noise slots per sample
 
-__global__ void __launch_bounds__(kThreads) synth_mag_f32_kernel(
-    const float* __restrict__ bg, const int* __restrict__ bidx,
+__device__ __forceinline__ float upcast(float x) { return x; }
+__device__ __forceinline__ float upcast(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float upcast(int8_t x) {
+  return static_cast<float>(x);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T, typename Out, bool kScaled>
+__global__ void __launch_bounds__(kThreads) synth_mag_kernel(
+    const T* __restrict__ bg, const int* __restrict__ bidx,
     const int* __restrict__ boff, long long bg_stride,
-    const float* __restrict__ vbank, const int* __restrict__ vidx,
+    const T* __restrict__ vbank, const int* __restrict__ vidx,
     const int* __restrict__ vshift, const float* __restrict__ vw,
     const int* __restrict__ vlen, int n_v, int v_rows, long long v_stride,
-    const float* __restrict__ nbank, const int* __restrict__ nidx,
+    const T* __restrict__ nbank, const int* __restrict__ nidx,
     const int* __restrict__ nshift, const float* __restrict__ nw,
     const int* __restrict__ nlen, int n_x, int n_rows, long long n_stride,
-    float* __restrict__ out, int n_frame, int width) {
-  __shared__ const float* s_clip[kMaxSlots];
+    const float* __restrict__ bgscale, Out* __restrict__ out, int n_frame,
+    int width) {
+  __shared__ const T* s_clip[kMaxSlots];
   __shared__ int s_shift[kMaxSlots];
   __shared__ int s_len[kMaxSlots];
   __shared__ float s_w[kMaxSlots];
@@ -90,50 +125,79 @@ __global__ void __launch_bounds__(kThreads) synth_mag_f32_kernel(
   __syncthreads();
 
   const int n_slots = s_n;
-  const float* win = bg + (long long)bidx[b] * bg_stride
-                        + (long long)boff[b] * width;
-  float* o = out + (long long)b * n_frame * half;
+  const T* win = bg + (long long)bidx[b] * bg_stride
+                    + (long long)boff[b] * width;
+  Out* o = out + (long long)b * n_frame * half;
   for (int m = threadIdx.x; m < half; m += kThreads) {
     for (int t = t0; t < t1; ++t) {
-      float re = win[(long long)t * width + m];
-      float im = win[(long long)t * width + half + m];
+      float re = upcast(win[(long long)t * width + m]);
+      float im = upcast(win[(long long)t * width + half + m]);
+      if (kScaled) {                                    // int8 banks
+        re = __fmul_rn(re, bgscale[b]);
+        im = __fmul_rn(im, bgscale[b]);
+      }
       for (int k = 0; k < n_slots; ++k) {
         const int j = t - s_shift[k];
         if (j >= 0 && j < s_len[k]) {
-          const float* row = s_clip[k] + (long long)j * width;
-          re = __fadd_rn(re, __fmul_rn(s_w[k], row[m]));
-          im = __fadd_rn(im, __fmul_rn(s_w[k], row[half + m]));
+          const T* row = s_clip[k] + (long long)j * width;
+          re = __fadd_rn(re, __fmul_rn(s_w[k], upcast(row[m])));
+          im = __fadd_rn(im, __fmul_rn(s_w[k], upcast(row[half + m])));
         }
       }
-      o[(long long)t * half + m] =
-          sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+      store(o + (long long)t * half + m,
+            sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))));
     }
   }
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller allocates `out` [batch, n_frame, width / 2]. Banks are contiguous
-// [items, rows, width] float32; slot tables are contiguous int32 / float32
-// [batch, n_v] and [batch, n_x]; the noise pointers may be null when
-// n_x == 0.
-extern "C" int synth_mag_f32(
-    const float* bg, const int* bidx, const int* boff, long long bg_stride,
-    const float* vbank, const int* vidx, const int* vshift, const float* vw,
-    const int* vlen, int n_v, int v_rows, long long v_stride,
-    const float* nbank, const int* nidx, const int* nshift, const float* nw,
-    const int* nlen, int n_x, int n_rows, long long n_stride,
-    float* out, int batch, int n_frame, int width, void* stream) {
+template <typename T, typename Out, bool kScaled>
+int launch(const T* bg, const int* bidx, const int* boff, long long bg_stride,
+           const T* vbank, const int* vidx, const int* vshift, const float* vw,
+           const int* vlen, int n_v, int v_rows, long long v_stride,
+           const T* nbank, const int* nidx, const int* nshift, const float* nw,
+           const int* nlen, int n_x, int n_rows, long long n_stride,
+           const float* bgscale, Out* out, int batch, int n_frame, int width,
+           void* stream) {
   if (n_v + n_x > kMaxSlots || batch > 65535 || width % 2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || n_frame == 0) return 0;
   const dim3 grid((n_frame + kRows - 1) / kRows, batch);
-  synth_mag_f32_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  synth_mag_kernel<T, Out, kScaled><<<grid, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
       bg, bidx, boff, bg_stride, vbank, vidx, vshift, vw, vlen, n_v, v_rows,
-      v_stride, nbank, nidx, nshift, nw, nlen, n_x, n_rows, n_stride, out,
-      n_frame, width);
+      v_stride, nbank, nidx, nshift, nw, nlen, n_x, n_rows, n_stride, bgscale,
+      out, n_frame, width);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError() (0
+// on success). The caller allocates `out` [batch, n_frame, width / 2]. Banks
+// are contiguous [items, rows, width] of the entry point's element type;
+// slot tables are contiguous int32 / float32 [batch, n_v] and [batch, n_x];
+// the noise pointers may be null when n_x == 0. `bgscale` is [batch]
+// float32 for int8 banks and must be null for the other two.
+#define SYNTH_ENTRY(NAME, T, OUT, SCALED)                                     \
+  extern "C" int NAME(                                                        \
+      const T* bg, const int* bidx, const int* boff, long long bg_stride,     \
+      const T* vbank, const int* vidx, const int* vshift, const float* vw,    \
+      const int* vlen, int n_v, int v_rows, long long v_stride,               \
+      const T* nbank, const int* nidx, const int* nshift, const float* nw,    \
+      const int* nlen, int n_x, int n_rows, long long n_stride,               \
+      const float* bgscale, OUT* out, int batch, int n_frame, int width,      \
+      void* stream) {                                                         \
+    if ((bgscale != nullptr) != SCALED) {                                     \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    }                                                                         \
+    return launch<T, OUT, SCALED>(bg, bidx, boff, bg_stride, vbank, vidx,     \
+                                  vshift, vw, vlen, n_v, v_rows, v_stride,    \
+                                  nbank, nidx, nshift, nw, nlen, n_x, n_rows, \
+                                  n_stride, bgscale, out, batch, n_frame,     \
+                                  width, stream);                             \
+  }
+
+SYNTH_ENTRY(synth_mag_f32, float, float, false)
+SYNTH_ENTRY(synth_mag_bf16, __nv_bfloat16, __nv_bfloat16, false)
+SYNTH_ENTRY(synth_mag_int8, int8_t, __nv_bfloat16, true)

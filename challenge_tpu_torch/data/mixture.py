@@ -185,13 +185,13 @@ def draw(gen: torch.Generator, banks: Banks, batch_size: int, n_frame: int,
                  nidx, nshift, nw, nlens)
 
 
-def synthesize(banks: Banks, draws: Draws):
-    """Draws -> (magnitude [B, n_frame, 2*freq] in the channel-major flat
-    layout, frame labels [B, V, n_frame, C]) (counterpart: the magnitude
-    branch of ``sample_batch``, mixture.py:534-544, and its labels).
+def synth_args(banks: Banks, draws: Draws):
+    """``synthesize_magnitude``'s arguments for ``draws`` on ``banks``.
 
-    A voice slot carries labels iff its weight is nonzero: weights are
-    ``accept * 10**-u`` with ``10**-u > 0``."""
+    int8 banks (mixture.py:467-472): each clip's dequantization scale is
+    folded into its weight, ``w * flat_scale[idx]`` in float32, and the
+    background scales ``flat_scale[bidx]`` go to the kernel. Scales are
+    > 0, so the ``w != 0`` activity gate is unchanged."""
     bg, vo, no = banks.backgrounds, banks.voices, banks.noises
     d = draws
     if bg.contig_exact_frames < d.n_frame:
@@ -199,10 +199,28 @@ def synthesize(banks: Banks, draws: Draws):
             f'background bank reads exactly only up to '
             f'{bg.contig_exact_frames} frames, the window is {d.n_frame}: '
             f'build the banks with n_frame={d.n_frame}')
-    mag = synthesize_magnitude(
-        d.n_frame, bg.flat, d.bidx, d.boff, vo.flat, d.vidx, d.vshift, d.vw,
-        None if d.nidx is None else no.flat, d.nidx, d.nshift, d.nw,
-        d.vlens, d.nlens)
+    vw, nw, bgscale = d.vw, d.nw, None
+    if bg.flat_scale is not None:
+        vw = d.vw * vo.flat_scale[d.vidx.long()]
+        if d.nidx is not None:
+            nw = d.nw * no.flat_scale[d.nidx.long()]
+        bgscale = bg.flat_scale[d.bidx.long()]
+    return (d.n_frame, bg.flat, d.bidx, d.boff, vo.flat, d.vidx, d.vshift,
+            vw, None if d.nidx is None else no.flat, d.nidx, d.nshift, nw,
+            d.vlens, d.nlens, bgscale)
+
+
+def synthesize(banks: Banks, draws: Draws):
+    """Draws -> (magnitude [B, n_frame, 2*freq] in the channel-major flat
+    layout, frame labels [B, V, n_frame, C]) (counterpart: the magnitude
+    branch of ``sample_batch``, mixture.py:534-544, and its labels). The
+    magnitude is float32 for float32 banks and bfloat16 for bfloat16 and
+    int8 banks.
+
+    A voice slot carries labels iff its drawn weight is nonzero: weights
+    are ``accept * 10**-u`` with ``10**-u > 0``."""
+    d = draws
+    mag = synthesize_magnitude(*synth_args(banks, d))
     label = _frame_labels(banks, d.vidx, d.vshift, d.n_frame) \
         * (d.vw != 0).to(torch.float32)[..., None, None]
     return mag, label

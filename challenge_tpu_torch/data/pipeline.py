@@ -30,23 +30,27 @@ LABEL_DOWNSAMPLE_MODELS = (3, 6, 7, 8, 9)
 
 def build_banks(backgrounds, voices, labels, noises=None,
                 n_classes: int = 3, one_hot: bool = True,
-                n_frame: Optional[int] = None, device=None) -> Banks:
+                n_frame: Optional[int] = None, flat_dtype='float32',
+                device=None) -> Banks:
     """Host lists of [freq, T_i, chan] arrays -> banks on ``device``
     (default ``cuda``). ``labels`` may be int class ids (remapped and
     one-hotted, reference: sj_train.py:86-88) or already one-hot. Pass
     ``n_frame`` (the training window) so backgrounds shorter than the window
-    are tiled as the reference tiles them (pipeline.py:29-35)."""
+    are tiled as the reference tiles them (pipeline.py:29-35).
+    ``flat_dtype`` ('float32', 'bfloat16' or 'int8', the ``bank_dtype``
+    flag) is the dtype of every bank's flat layout (see
+    ``specset.build_bank``)."""
     device = resolve_device(device)
     labels = np.asarray(labels)
     if one_hot and labels.ndim == 1:
         labels = remap_labels(labels, n_classes)
     return Banks(
         backgrounds=build_bank(backgrounds, wrap_frames=n_frame,
-                               device=device),
-        voices=build_bank(voices, device=device),
+                               flat_dtype=flat_dtype, device=device),
+        voices=build_bank(voices, flat_dtype=flat_dtype, device=device),
         voice_labels=torch.as_tensor(np.asarray(labels, np.float32),
                                      device=device),
-        noises=(build_bank(noises, device=device)
+        noises=(build_bank(noises, flat_dtype=flat_dtype, device=device)
                 if noises is not None else None))
 
 
@@ -81,9 +85,13 @@ class FeatureFn:
         self.filter_cols = torch.from_numpy(np.tile(keep, 2)).to(self.device)
 
     def mel(self, mag, tmask=None, fmask=None):
-        """mag: [B, T, 2*freq] flat magnitude (column c*freq + f); tmask
-        [B, T] / fmask [B, freq]: {0,1} keep masks, or None for no
-        SpecAugment. Returns the pre-log mel [B, n_mels, T, 2]."""
+        """mag: [B, T, 2*freq] flat magnitude (column c*freq + f), float32
+        or, from reduced-precision banks, bfloat16; tmask [B, T] / fmask
+        [B, freq]: {0,1} keep masks, or None for no SpecAugment. Returns
+        the pre-log mel [B, n_mels, T, 2] in float32. A bfloat16 magnitude
+        is cast to float32 first, which is exact, as JAX promotes
+        bf16 * f32 to f32."""
+        mag = mag.float()
         b, t, width = mag.shape
         if width != 2 * self.freq:
             raise ValueError(f'magnitude width {width}, expected '

@@ -2,7 +2,8 @@
 
 A numpy copy of ``tf.signal.linear_to_mel_weight_matrix(n_mels, 257, 16000)``
 with TF's default band edges (125 Hz, 3800 Hz), built once on the host. The
-projection itself is a plain matmul at the call site.
+projection is a plain matmul: at the call site in training, and in
+:func:`magnitude_to_mel` for evaluation.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 def _hertz_to_mel(f):
@@ -44,3 +46,10 @@ def mel_filterbank(num_mel_bins: int = 80, num_spectrogram_bins: int = 257,
     weights = weights.astype(np.float32)
     weights.setflags(write=False)      # shared through the cache
     return weights
+
+
+def magnitude_to_mel(mag: torch.Tensor, melm: torch.Tensor) -> torch.Tensor:
+    """Unbatched magnitude [freq, T, chan] -> mel [n_mels, T, chan]
+    (counterpart: ``magphase_to_mel`` on the magnitude half of a magphase,
+    mel.py:80-103; reference: transforms.py:58-77)."""
+    return torch.einsum('ftc,fm->mtc', mag, melm)

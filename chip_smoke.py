@@ -14,26 +14,57 @@ without the result line:
    nvcc for sm_90a, and print the build seconds and ptxas' report;
 2. make random spec banks on the card at a realistic size (32 backgrounds
    of 1,875 frames, 512 voices of 40-130 frames, 128 noises of 20-100,
-   each [257, T, 4] float32, from a seed);
-3. hold the synthesis kernel against its plain PyTorch version on the
-   card: bit for bit (tolerance 0.0: both round every multiply and add of
-   the same ordered sum and take the IEEE root), on draws of the main path
-   (batch 12, 512 frames, 7 voice and 2 noise slots) and on adversarial
-   draws (negative shifts, shifts of n_frame and beyond, inactive slots,
-   long then short clips, no noise bank, a ragged row tile);
-4. check the port on the card against the port on the CPU on a small input:
-   synthesis bit for bit, log-mel within 1e-5 mean abs error, labels
-   exact, and one training-mode forward and loss within 1e-5 relative;
+   each [257, T, 4] float32, from a seed), as float32, bfloat16 and int8
+   banks from the same sources;
+3. hold the float32 synthesis kernel against its plain PyTorch version on
+   the card: bit for bit (tolerance 0.0: both round every multiply and add
+   of the same ordered sum and take the IEEE root), on draws of the main
+   path (batch 12, 512 frames, 7 voice and 2 noise slots) and on
+   adversarial draws (negative shifts, shifts of n_frame and beyond,
+   inactive slots, long then short clips, no noise bank, a ragged row
+   tile);
+3b. the same for the bfloat16 and int8 kernels, on banks built from the
+   same sources and on the adversarial cases with their banks rounded or
+   quantized: bit for bit (both upcast exactly, sum in float32 in order,
+   take the IEEE root and round it once to bfloat16);
+4. check the port on the card against the port on the CPU on a small
+   input: synthesis bit for bit, log-mel within 1e-5 mean abs error,
+   labels exact, and one training-mode forward and loss within 1e-5
+   relative;
+4b. int8 synthesis on the card against the CPU on that input, bit for bit;
 5. the main path: ``get_model(Config(model_type='vad', v=8))`` at full width
    (base 48, td_dim 1024, 80 mels, 512 frames, batch 12),
    ``DevicePipeline`` and ``TrainLoop.fit`` for 5 training steps and 1
    validation step, with the kernel launch counts set to 0 just before and
    read just after: every batch must have gone through the kernel, and
    the losses must be finite;
-6. times: the kernel and its plain version in turns (plain, kernel,
-   kernel, plain) with CUDA events, its bound from this run's draws, and
-   the training step (20 steps of one epoch, read back once, as ``fit``
-   does), the batch pipeline and the model step on their own.
+6. times: each kernel and its plain version in turns (plain, kernel,
+   kernel, plain) with CUDA events, their bounds from this run's draws,
+   and the training step (20 steps of one epoch, read back once, as
+   ``fit`` does), the batch pipeline and the model step on their own;
+   then the training step in banks mode, as the CLI runs it, and the batch
+   pipeline alone, with float32 and int8 banks in turns (float32, int8,
+   int8, float32), so that only the bank dtype differs;
+7. the CLI chain, in a temporary directory: the realistic spec sets as
+   pickles under sj_train's default file names, and a dev set of 6
+   two-channel 16 kHz WAVs of 60 s with ``sample_answer.json``; then
+   ``cli.sj_train.main`` with ``--bank_dtype int8`` for 3 epochs of 5 steps
+   (16 validation steps each; the eval callback fires at epoch 2 and SWA
+   folds at epoch 1), which must launch the int8 kernel once per batch (63
+   times) and write the checkpoint trio and a 3-row CSV; ``cli.eval.main``
+   with ``--p``, which must return 6 finite ERs; and ``--bank_dtype
+   bfloat16`` for 1 epoch of 5 steps, which must launch the bfloat16
+   kernel 21 times. Each run's counts are set to 0 just before it and read
+   just after. The eval seconds of the 6 x 60 s dev set are timed;
+8. the same ``_SWA.h5`` evaluated on the card and on the CPU over 2 of the
+   clips cut to 8 s. The briefly trained model predicts no event, so its
+   BN statistics are first set to those of the clips and its output bias
+   shifted per class until a tenth of the CPU's output frames over both
+   clips lie above 0.5. The smoothed scores must
+   agree within 1e-5 of their peak, the 0/1 grids must hold both events
+   and silence, any frame whose grid differs must have a score within
+   1e-5 of 0.5 (the count of such frames is printed), and the ERs against
+   the answers inside each clip's 8 s must be identical.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -42,30 +73,48 @@ them, one JSON object ``{"kernels": [...]}`` and, last,
 
 from __future__ import annotations
 
+import copy
 import json
 import math
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
+import wave
 
 import numpy as np
 import torch
 
 from challenge_tpu_torch import (
     Config, DevicePipeline, TrainLoop, build_banks, get_model)
+from challenge_tpu_torch.cli import eval as eval_cli
+from challenge_tpu_torch.cli import sj_train
 from challenge_tpu_torch.data import mixture
 from challenge_tpu_torch.data.pipeline import FeatureFn
-from challenge_tpu_torch.models.registry import ModelBundle
+from challenge_tpu_torch.data.specset import FLAT_DTYPES
+from challenge_tpu_torch.evaluate import events, infer
+from challenge_tpu_torch.models.layers import BatchNorm
 from challenge_tpu_torch.models.vad import VADModel
 from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.ops.augment import batch_mask_keep
+from challenge_tpu_torch.ops.dsp import load_wav
 from challenge_tpu_torch.ops.synth import (
-    KERNEL, synthesize_magnitude, synthesize_magnitude_plain)
+    KERNELS, synthesize_magnitude, synthesize_magnitude_plain)
+from challenge_tpu_torch.train.checkpoint import load_weights
 from challenge_tpu_torch.train.losses import binary_crossentropy
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TRAIN_STEPS, VAL_STEPS = 5, 1
+CLI_EPOCHS, CLI_STEPS, CLI_VAL_STEPS = 3, 5, 16
+SR = 16000
+CUT_S = 8                      # phase 8's clips, seconds
+SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
+MIN_GAP = 1e-3                 # phase 8: least logit gap at the threshold
+SHARP = 8.0                    # phase 8: logits next to the threshold, after
+                               # scaling (sigmoid(-8) = 3.4e-4)
 
 
 def log(msg: str) -> None:
@@ -95,21 +144,14 @@ def sources(seed: int, n_bg: int, bg_len, n_voice: int, voice_len,
             rng.integers(0, 30, n_voice), specs(n_noise, noise_len, 0.3))
 
 
-def draw_args(banks, d):
-    """synthesize_magnitude's arguments for the draws ``d``."""
-    return (d.n_frame, banks.backgrounds.flat, d.bidx, d.boff,
-            banks.voices.flat, d.vidx, d.vshift, d.vw,
-            None if d.nidx is None else banks.noises.flat, d.nidx, d.nshift,
-            d.nw, d.vlens, d.nlens)
-
-
 def max_abs_diff(args) -> float:
     out = synthesize_magnitude(*args)
     ref = synthesize_magnitude_plain(*args)
     torch.cuda.synchronize()
-    if out.shape != ref.shape:
-        raise AssertionError(f'kernel shape {out.shape}, plain {ref.shape}')
-    return float((out - ref).abs().max())
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f'kernel {out.shape} {out.dtype}, plain '
+                             f'{ref.shape} {ref.dtype}')
+    return float((out.float() - ref.float()).abs().max())
 
 
 def adversarial_cases(dev):
@@ -117,7 +159,7 @@ def adversarial_cases(dev):
     negative shifts and shifts of n_frame and past it, w == 0 slots, clips
     longer than their stated length after short ones in the same slot, a
     lens past the bank's rows, no noise bank, and n_frame not a multiple
-    of the kernel's 8-row tile."""
+    of the kernel's 8-row tile. float32 banks; see :func:`lowp_case`."""
     rng = np.random.default_rng(11)
     f = 4 * 257
 
@@ -158,12 +200,42 @@ def adversarial_cases(dev):
     return cases
 
 
-def synth_work(d, width: int):
-    """(bytes, flops) that synthesizing the draws ``d`` needs, counting
-    what this run's data needs: each sample's background window, the rows
-    of every active clip (w != 0) that land in the window, the slot tables
-    and the magnitude written, each once; a multiply and an add per clip
-    element and 3 operations and a root per magnitude."""
+def lowp_case(args, dtype: torch.dtype):
+    """A float32 adversarial case with its banks rounded to bfloat16, or
+    quantized per item to int8 with the clip scales folded into the
+    weights and the background scales passed, as the int8 banks are."""
+    (nf, bg, bidx, boff, vb, vidx, vshift, vw, nb, nidx, nshift, nw,
+     vlens, nlens) = args
+
+    def quantize(bank):
+        peak = bank.abs().amax(dim=(1, 2))
+        scale = torch.where(peak > 0, peak / 127.0, torch.ones_like(peak))
+        q = torch.clamp(torch.round(bank / scale[:, None, None]), -127, 127)
+        return q.to(torch.int8), scale
+
+    if dtype == torch.bfloat16:
+        return (nf, bg.to(dtype), bidx, boff, vb.to(dtype), vidx, vshift, vw,
+                None if nb is None else nb.to(dtype), nidx, nshift, nw,
+                vlens, nlens, None)
+    (bg, bs), (vb, vs) = quantize(bg), quantize(vb)
+    vw = vw * vs[vidx.long()]
+    if nb is not None:
+        nb, ns = quantize(nb)
+        nw = nw * ns[nidx.long()]
+    return (nf, bg, bidx, boff, vb, vidx, vshift, vw, nb, nidx, nshift, nw,
+            vlens, nlens, bs[bidx.long()])
+
+
+def synth_work(d, width: int, dtype: torch.dtype):
+    """(bytes, flops) that synthesizing the draws ``d`` from banks of
+    ``dtype`` needs, counting what this run's data needs: each sample's
+    background window, the rows of every active clip (w != 0) that land in
+    the window, the slot tables (and int8's background scales) and the
+    magnitude written, each once; a multiply and an add per clip element,
+    int8's background scaling, and 3 operations and a root per
+    magnitude."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    out_elem = torch.empty((), dtype=KERNELS[dtype][1]).element_size()
     n_frame, b = d.n_frame, d.bidx.shape[0]
     rows, table = 0, 2 * b * 4
     for shift, w, lens in ((d.vshift, d.vw, d.vlens),
@@ -174,9 +246,14 @@ def synth_work(d, width: int):
         hi = torch.minimum(lens, n_frame - shift)
         rows += int(((hi - lo).clamp(min=0) * (w != 0)).sum())
         table += 4 * shift.numel() * 4
+    window = b * n_frame * width
     out = b * n_frame * (width // 2)
-    nbytes = 4 * (b * n_frame * width + rows * width + out) + table
-    return nbytes, 2 * rows * width + 4 * out
+    nbytes = elem * (window + rows * width) + out_elem * out + table
+    flops = 2 * rows * width + 4 * out
+    if dtype == torch.int8:
+        nbytes += 4 * b
+        flops += window
+    return nbytes, flops
 
 
 def gpu_ms(fn, arg_list, reps: int) -> float:
@@ -208,7 +285,8 @@ def wall_ms(fn, reps: int) -> float:
 
 def small_reference_check(dev) -> dict:
     """The port on the card against the port on the CPU, on a small
-    input: the same draws, masks and weights on both."""
+    input: the same draws, masks and weights on both; then int8 synthesis
+    on the same draws."""
     cfg = Config(model_type='vad', v=8, n_mels=32, n_frame=64, batch_size=4)
     src = sources(3, 3, (20, 90), 6, (10, 40), 3, (8, 20))
     cpu, gpu = torch.device('cpu'), dev
@@ -239,8 +317,17 @@ def small_reference_check(dev) -> dict:
         loss_g = float(binary_crossentropy(l_g, m_g(x_g)))
     if not math.isclose(loss_g, loss_c, rel_tol=1e-5):
         raise AssertionError(f'card vs CPU loss: {loss_g} vs {loss_c}')
+    # 4b: int8 banks, the same draws
+    q = {d: build_banks(*src, n_frame=64, flat_dtype='int8', device=d)
+         for d in (cpu, gpu)}
+    qmag_c, _ = mixture.synthesize(q[cpu], draws)
+    qmag_g, _ = mixture.synthesize(q[gpu], gdraws)
+    if qmag_g.dtype != torch.bfloat16 or not torch.equal(qmag_g.cpu(),
+                                                         qmag_c):
+        raise AssertionError('card vs CPU int8 synthesis differ: max diff '
+                             f'{float((qmag_g.cpu() - qmag_c).abs().max())}')
     return dict(synth_max_abs=synth_diff, logmel_mean_abs=feat_err,
-                loss_gpu=loss_g, loss_cpu=loss_c)
+                loss_gpu=loss_g, loss_cpu=loss_c, int8_synth_max_abs=0.0)
 
 
 def model_step_ms(benchmark: bool, reps: int = 10) -> float:
@@ -284,11 +371,11 @@ def profile_steps(loop, it, steps: int) -> None:
         loop.run_epoch(it, steps, training=True)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    attr = ('self_device_time_total' if hasattr(events[0],
+    events_ = prof.key_averages()
+    attr = ('self_device_time_total' if hasattr(events_[0],
                                                 'self_device_time_total')
             else 'self_cuda_time_total')
-    device = [e for e in events
+    device = [e for e in events_
               if e.device_type == torch.autograd.DeviceType.CUDA]
     # the optimizer's annotated range spans its kernels and the gaps
     # between them; the rest are kernels
@@ -308,6 +395,272 @@ def profile_steps(loop, it, steps: int) -> None:
         'synth_ms': sum(r[0] for r in rows if 'synth_mag' in r[1]) / 1e3}))
 
 
+def write_dev_set(d: str, n_clips: int = 6, seconds: float = 60.0,
+                  seed: int = 0) -> dict:
+    """``n_clips`` two-channel 16 kHz int16 WAVs of noise with tone events
+    of three classes (300, 800 and 1,500 Hz, 0.8-2 s each), and the
+    ``sample_answer.json`` that lists the events. Returns the answers."""
+    rng = np.random.default_rng(seed)
+    answers = {}
+    for i in range(n_clips):
+        n = int(seconds * SR)
+        sig = 0.05 * rng.standard_normal((n, 2))
+        evs, t = [], float(rng.uniform(0.5, 2.0))
+        while t + 2.5 < seconds:
+            cls, dur = int(rng.integers(0, 3)), float(rng.uniform(0.8, 2.0))
+            s0, s1 = int(t * SR), int((t + dur) * SR)
+            tone = np.sin(2 * np.pi * (300, 800, 1500)[cls]
+                          * np.arange(s1 - s0) / SR)
+            sig[s0:s1] += 0.2 * tone[:, None]
+            evs.append([cls, round(t, 3), round(t + dur, 3)])
+            t += dur + float(rng.uniform(1.0, 4.0))
+        write_wav(os.path.join(d, f'dev{i:02d}.wav'),
+                  (np.clip(sig, -1, 1) * 32767).astype('<i2'))
+        answers[f'dev{i:02d}'] = evs
+    with open(os.path.join(d, 'sample_answer.json'), 'w') as f:
+        json.dump({'task2_answer': answers}, f)
+    return answers
+
+
+def write_wav(path: str, pcm) -> None:
+    """int16 [n, chan] -> 16-bit PCM WAV at 16 kHz."""
+    with wave.open(path, 'wb') as f:
+        f.setnchannels(pcm.shape[1])
+        f.setsampwidth(2)
+        f.setframerate(SR)
+        f.writeframes(pcm.tobytes())
+
+
+def write_spec_sets(d: str, train_src, test_src) -> None:
+    """The spec sets as pickles (labels as .npy) under sj_train's default
+    file names; the noises are shared by both sets, as in the CLI."""
+    cfg = Config()
+    bgs, voices, labels, noises = train_src
+    tbgs, tvoices, tlabels, _ = test_src
+    for name, obj in ((cfg.background_sounds, bgs), (cfg.voices, voices),
+                      (cfg.noises, noises),
+                      (cfg.test_background_sounds, tbgs),
+                      (cfg.test_voices, tvoices)):
+        with open(os.path.join(d, name), 'wb') as f:
+            pickle.dump(list(obj), f, protocol=pickle.HIGHEST_PROTOCOL)
+    np.save(os.path.join(d, cfg.labels), labels)
+    np.save(os.path.join(d, cfg.test_labels), tlabels)
+
+
+def run_cli(argv, kernel: str, batches: int):
+    """``cli.sj_train.main(argv)`` with the launch counts set to 0 just
+    before and read just after; ``kernel`` must have launched once per
+    batch. Returns (run name, counts, wall seconds)."""
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = sj_train.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(cuda.LAUNCHES)
+    log(f'cli {kernel}: {json.dumps(counts)} in {secs:.3f} s')
+    if counts.get(kernel, 0) != batches:
+        raise AssertionError(f'{kernel} ran {counts.get(kernel, 0)} times '
+                             f'for {batches} batches')
+    return run, counts, secs
+
+
+def cli_chain(dev, train_src, test_src) -> dict:
+    """Phases 7 and 8, in a temporary directory that is removed after."""
+    res = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as d:
+        os.chdir(d)
+        try:
+            write_spec_sets(d, train_src, test_src)
+            answers = write_dev_set(d)
+            base = ['--model_type', 'vad', '--v', '8', '--n_chan', '2',
+                    '--datapath', d]
+            batches = CLI_EPOCHS * (CLI_STEPS + CLI_VAL_STEPS)
+            run, counts, res['int8_cli_s'] = run_cli(
+                base + ['--bank_dtype', 'int8', '--epochs', str(CLI_EPOCHS),
+                        '--steps_per_epoch', str(CLI_STEPS)],
+                'synth_mag_int8', batches)
+            res['int8_launches'], res['int8_batches'] = counts, batches
+            for suffix in ('.h5', '_SWA.h5', '_sample.h5'):
+                if not os.path.exists(run + suffix):
+                    raise AssertionError(f'missing checkpoint {run}{suffix}')
+            with open(run + '.csv') as f:
+                rows = f.read().strip().splitlines()
+            if len(rows) != 1 + CLI_EPOCHS:
+                raise AssertionError(f'{run}.csv has {len(rows)} lines')
+            t0 = time.perf_counter()
+            ers = eval_cli.main(['--name', run, '--p'])
+            torch.cuda.synchronize()
+            res['eval_s'] = time.perf_counter() - t0
+            if len(ers) != 6 or not all(map(math.isfinite, ers)):
+                raise AssertionError(f'eval CLI ERs: {ers}')
+            res['ers'] = ers
+            log(f'eval CLI, 6 x 60 s: ERs {ers} in {res["eval_s"]:.3f} s')
+            _, counts, res['bf16_cli_s'] = run_cli(
+                base + ['--bank_dtype', 'bfloat16', '--name', 'bf16',
+                        '--epochs', '1', '--steps_per_epoch',
+                        str(CLI_STEPS)],
+                'synth_mag_bf16', CLI_STEPS + CLI_VAL_STEPS)
+            res['bf16_launches'] = counts
+            res['bf16_batches'] = CLI_STEPS + CLI_VAL_STEPS
+            res.update(card_vs_cpu_eval(dev, run, answers))
+        finally:
+            os.chdir(cwd)
+    return res
+
+
+def clip_windows(cfg, module, paths):
+    """The model inputs (log-mel windows) of ``paths``, concatenated."""
+    windows = []
+    hook = module.register_forward_pre_hook(
+        lambda mod, args: windows.append(args[0]))
+    for path in paths:
+        infer.clip_scores(cfg, module, path)
+    hook.remove()
+    return torch.cat(windows)
+
+
+def event_bias_shift(z):
+    """Per class, the output bias shift that puts the 0.5 threshold in the
+    middle of the widest gap between the sorted logits ``z [n, C]`` with
+    at least one and at most half of them above it, so that no logit lies
+    near it, and that gap's width. A class whose widest such gap is under
+    ``MIN_GAP`` (its logits hardly vary) is shifted 10 below its least
+    logit instead, and predicts no event."""
+    zs = torch.sort(z, dim=0).values
+    n = zs.shape[0]
+    gaps = zs[n // 2 + 1:] - zs[n // 2:-1]
+    k = gaps.argmax(dim=0) + n // 2
+    cols = torch.arange(zs.shape[1])
+    mid = (zs[k, cols] + zs[k + 1, cols]) / 2
+    width = gaps.amax(dim=0)
+    return torch.where(width >= MIN_GAP, -mid, -zs[-1] - 10.0), width
+
+
+def card_vs_cpu_eval(dev, run: str, answers: dict) -> dict:
+    """Phase 8: ``run``'s _SWA.h5 on the card and on the CPU over the first
+    2 dev clips cut to ``CUT_S`` seconds, made to predict events first.
+
+    After a few steps the BN running statistics are still near their
+    initial 0 and 1, so the eval-mode outputs hardly vary and predict no
+    event. The statistics are therefore set to those of the whole dev
+    set's windows (one training-mode forward on the card with momentum 0),
+    and the output bias is shifted per class (:func:`event_bias_shift`).
+    The CPU's model and a float64 copy of it get the same weights.
+
+    Held, on the scores: the card's spectrogram against the CPU's within
+    ``SCORE_TOL`` of the peak; the card's scores from the CPU's
+    spectrogram against the float64 scores within ``SCORE_TOL`` of the
+    peak, or within 10 times the distance of the CPU's float32 scores (a
+    model whose outputs vary with its input amplifies float32 rounding,
+    and the card's convolution algorithms round otherwise than the
+    CPU's). Then each class's logits are scaled until those next to the
+    threshold lie ``SHARP`` from it, so that every smoothed score lies at
+    least 1/62 from 0.5, and held on the grids: end to end they may
+    differ only at frames within ``SCORE_TOL`` of 0.5, must hold events
+    and silence, and give identical ERs against the answers inside each
+    clip."""
+    cfg = Config(model_type='vad', v=8)
+    paths = []
+    for i in range(2):
+        with wave.open(f'dev{i:02d}.wav', 'rb') as f:
+            pcm = np.frombuffer(f.readframes(CUT_S * SR),
+                                '<i2').reshape(-1, 2)
+        paths.append(f'cut{i:02d}.wav')
+        write_wav(paths[-1], pcm)
+    card, cpu = (get_model(cfg, device=where).module
+                 for where in (dev, torch.device('cpu')))
+    card.load_state_dict(load_weights(run + '_SWA.h5'))
+    x = clip_windows(cfg, card, [f'{name}.wav' for name in sorted(answers)])
+    bns = [m for m in card.modules() if isinstance(m, BatchNorm)]
+    momenta = [m.momentum for m in bns]
+    logits = []
+    with torch.no_grad():
+        for m in bns:
+            m.momentum = 0.0
+        card.train()(x)
+        for m, momentum in zip(bns, momenta):
+            m.momentum = momentum
+        last = card.fcs[-1].dense
+        hook = last.register_forward_hook(
+            lambda mod, args, out: logits.append(out))
+        card.eval()(clip_windows(cfg, card, paths))
+        hook.remove()
+        shift, widths = event_bias_shift(
+            logits[-1].reshape(-1, last.out_features).cpu())
+        last.bias += shift.to(dev)
+    cpu.load_state_dict(card.state_dict())
+    ref = copy.deepcopy(cpu).double()
+
+    gap = dict.fromkeys(('spec', 'cpu_vs_f64', 'card_vs_f64', 'card_vs_cpu',
+                         'end_to_end'), 0.0)
+    specs = []
+    for path in paths:
+        spec = {'cpu': load_wav(path, device='cpu'),
+                'card': load_wav(path, device=dev).cpu()}
+        specs.append(spec)
+        scores = {
+            'f64': infer.spec_to_scores(cfg, ref, spec['cpu']),
+            'cpu': infer.spec_to_scores(cfg, cpu, spec['cpu']),
+            'card': infer.spec_to_scores(cfg, card,
+                                         spec['cpu'].to(dev)).cpu(),
+            'card_e2e': infer.spec_to_scores(cfg, card,
+                                             spec['card'].to(dev)).cpu()}
+        peak = float(scores['f64'].abs().max())
+        for key, a, b in (
+                ('spec', spec['card'], spec['cpu']),
+                ('cpu_vs_f64', scores['cpu'], scores['f64']),
+                ('card_vs_f64', scores['card'], scores['f64']),
+                ('card_vs_cpu', scores['card'], scores['cpu']),
+                ('end_to_end', scores['card_e2e'], scores['cpu'])):
+            ref_peak = float(b.abs().max()) if key == 'spec' else peak
+            gap[key] = max(gap[key],
+                           float((a - b).abs().max()) / ref_peak)
+    log(f'card vs CPU eval, 2 clips of {CUT_S} s: logit gaps at the '
+        f'threshold {widths.tolist()}, max abs gaps over the peak '
+        f'{json.dumps(gap)}')
+    if gap['spec'] > SCORE_TOL:
+        raise AssertionError('card vs CPU spectrogram beyond the tolerance')
+    if gap['card_vs_f64'] > max(SCORE_TOL, 10 * gap['cpu_vs_f64']):
+        raise AssertionError('card scores beyond the tolerance')
+
+    scale = torch.where(widths >= MIN_GAP, 2 * SHARP / widths, 1.0)
+    with torch.no_grad():
+        for m in (card, cpu):
+            m.fcs[-1].dense.weight *= scale.to(m.td.weight.device)[:, None]
+            m.fcs[-1].dense.bias *= scale.to(m.td.weight.device)
+    to_metric = events.output_to_metric(infer.HOP, SR)
+    borderline, positive, nearest = 0, [], 0.5
+    ers = {'card': [], 'cpu': []}
+    for i, spec in enumerate(specs):
+        scores = {'cpu': infer.spec_to_scores(cfg, cpu, spec['cpu']),
+                  'card': infer.spec_to_scores(cfg, card,
+                                               spec['card'].to(dev)).cpu()}
+        grids = {k: (v >= 0.5).float().numpy() for k, v in scores.items()}
+        dist = np.abs(scores['cpu'].numpy() - 0.5)
+        differ = grids['card'] != grids['cpu']
+        if (differ & (dist > SCORE_TOL)).any():
+            raise AssertionError(f'clip {i}: card and CPU grids differ away '
+                                 'from the 0.5 threshold')
+        borderline += int(differ.sum())
+        nearest = min(nearest, float(dist.min()))
+        positive.append(float(grids['cpu'].mean()))
+        gt = np.asarray([[c, t0, min(t1, CUT_S)] for c, t0, t1
+                         in answers[f'dev{i:02d}'] if t0 < CUT_S])
+        for k, g in grids.items():
+            ers[k].append(events.get_er(gt, to_metric(
+                *events.get_start_end_frame(g))))
+    log(f'card vs CPU grids: positive share {positive}, nearest score to '
+        f'0.5 at {nearest}, {borderline} frames differ, ERs {ers}')
+    if not 0.0 < np.mean(positive) < 1.0:
+        raise AssertionError(f'positive grid share per clip: {positive}')
+    if ers['card'] != ers['cpu']:
+        raise AssertionError(f'card vs CPU ERs: {ers}')
+    return dict(cut_ers=ers['card'], cut_max_rel_gap=gap,
+                cut_positive_share=positive, cut_nearest_to_half=nearest,
+                borderline_frames=borderline)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -324,40 +677,49 @@ def main(argv) -> int:
     secs = cuda.build(['synth'], verbose=True)
     log(f'build: {secs:.3f} s')
 
-    # 2. banks at a realistic size
+    # 2. banks at a realistic size, in the three bank dtypes
     t0 = time.perf_counter()
     src = sources(0, 32, 1875, 512, (40, 130), 128, (20, 100))
-    banks = build_banks(*src, n_frame=512)
-    del src
+    banks = {name: build_banks(*src, n_frame=512, flat_dtype=name)
+             for name in FLAT_DTYPES}
     torch.cuda.synchronize()
-    bank_bytes = sum(t.numel() * t.element_size() for b in
-                     (banks.backgrounds, banks.voices, banks.noises)
-                     for t in (b.flat, b.lens, b.pos_mask))
-    log(f'banks: {bank_bytes / 2**30:.3f} GiB on the card in '
-        f'{time.perf_counter() - t0:.3f} s')
+    for name, bk in banks.items():
+        nbytes = sum(t.numel() * t.element_size() for b in
+                     (bk.backgrounds, bk.voices, bk.noises)
+                     for t in (b.flat, b.lens, b.pos_mask, b.flat_scale)
+                     if t is not None)
+        log(f'banks {name}: {nbytes / 2**30:.3f} GiB on the card')
+    log(f'banks built in {time.perf_counter() - t0:.3f} s')
 
-    # 3. the kernel against its plain version
+    # 3, 3b. each kernel against its plain version
     cfg = Config(model_type='vad', v=8)
     gen = torch.Generator(device=dev).manual_seed(1)
-    main_draws = [mixture.draw(gen, banks, cfg.batch_size, cfg.n_frame,
-                               max_voices=cfg.max_voices,
+    main_draws = [mixture.draw(gen, banks['float32'], cfg.batch_size,
+                               cfg.n_frame, max_voices=cfg.max_voices,
                                max_noises=cfg.max_noises, snr=cfg.snr)
                   for _ in range(16)]
-    errs = {'main_path': max(max_abs_diff(draw_args(banks, d))
-                             for d in main_draws[:4])}
-    for name, args in adversarial_cases(dev).items():
-        errs[name] = max_abs_diff(args)
+    cases = adversarial_cases(dev)
+    errs = {}
+    for name, dt in FLAT_DTYPES.items():
+        e = {'main_path': max(max_abs_diff(mixture.synth_args(banks[name], d))
+                              for d in main_draws[:4])}
+        for case, args in cases.items():
+            e[case] = max_abs_diff(args if dt == torch.float32
+                                   else lowp_case(args, dt))
+        errs[KERNELS[dt][0]] = e
     log('kernel vs plain, max abs diff: ' + json.dumps(errs))
-    if any(e != 0.0 for e in errs.values()):
-        raise AssertionError(f'{KERNEL} disagrees with its plain version')
+    if any(v != 0.0 for e in errs.values() for v in e.values()):
+        raise AssertionError('a synthesis kernel disagrees with its plain '
+                             'version')
 
-    # 4. the card against the CPU on a small input
+    # 4, 4b. the card against the CPU on a small input
     log('card vs CPU, small input: ' + json.dumps(small_reference_check(dev)))
 
     # 5. the main path
+    f32_kernel = KERNELS[torch.float32][0]
     loop = TrainLoop(get_model(cfg))
-    train_it = iter(DevicePipeline(banks, cfg))
-    val_it = iter(DevicePipeline(banks, cfg, training=False))
+    train_it = iter(DevicePipeline(banks['float32'], cfg))
+    val_it = iter(DevicePipeline(banks['float32'], cfg, training=False))
     cuda.reset_launch_counts()
     hist = loop.fit(train_it, epochs=1, steps_per_epoch=TRAIN_STEPS,
                     validation_iter=val_it, validation_steps=VAL_STEPS)
@@ -365,28 +727,36 @@ def main(argv) -> int:
     launches = dict(cuda.LAUNCHES)
     logs = hist[0]
     log('main path launches: ' + json.dumps(launches))
-    if launches.get(KERNEL, 0) != TRAIN_STEPS + VAL_STEPS:
-        raise AssertionError(f'{KERNEL} ran {launches.get(KERNEL, 0)} times '
-                             f'for {TRAIN_STEPS + VAL_STEPS} batches')
+    if launches.get(f32_kernel, 0) != TRAIN_STEPS + VAL_STEPS:
+        raise AssertionError(f'{f32_kernel} ran '
+                             f'{launches.get(f32_kernel, 0)} times for '
+                             f'{TRAIN_STEPS + VAL_STEPS} batches')
     if not all(math.isfinite(logs[k]) for k in ('loss', 'val_loss')):
         raise AssertionError(f'non-finite losses: {logs}')
 
     # 6. times
-    args = [draw_args(banks, d) for d in main_draws]
-    kernel_ms, plain_ms = [], []
-    for which in ('plain', 'kernel', 'kernel', 'plain'):
-        if which == 'kernel':
-            kernel_ms.append(gpu_ms(synthesize_magnitude, args, 64))
-        else:
-            plain_ms.append(gpu_ms(synthesize_magnitude_plain, args, 16))
-    work = [synth_work(d, banks.backgrounds.flat.shape[-1])
-            for d in main_draws]
-    nbytes = sum(w[0] for w in work) / len(work)
-    flops = sum(w[1] for w in work) / len(work)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-    log(f'synth: kernel {kernel_ms} ms, plain {plain_ms} ms, '
-        f'{nbytes / 1e6:.3f} MB and {flops / 1e9:.4f} GFLOP per call, '
-        f'bound {bound_ms * 1e3:.3f} us')
+    timing = {}
+    for name, dt in FLAT_DTYPES.items():
+        args = [mixture.synth_args(banks[name], d) for d in main_draws]
+        kernel_ms, plain_ms = [], []
+        for which in ('plain', 'kernel', 'kernel', 'plain'):
+            if which == 'kernel':
+                kernel_ms.append(gpu_ms(synthesize_magnitude, args, 64))
+            else:
+                plain_ms.append(gpu_ms(synthesize_magnitude_plain, args, 16))
+        work = [synth_work(d, banks[name].backgrounds.flat.shape[-1], dt)
+                for d in main_draws]
+        nbytes = sum(w[0] for w in work) / len(work)
+        flops = sum(w[1] for w in work) / len(work)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        timing[KERNELS[dt][0]] = dict(
+            ms=sum(kernel_ms) / len(kernel_ms),
+            plain_ms=sum(plain_ms) / len(plain_ms), bound_ms=bound_ms,
+            bound_by=('bytes' if nbytes / HBM_BYTES_PER_S
+                      >= flops / FP32_FLOPS else 'operations'))
+        log(f'synth {name}: kernel {kernel_ms} ms, plain {plain_ms} ms, '
+            f'{nbytes / 1e6:.3f} MB and {flops / 1e9:.4f} GFLOP per call, '
+            f'bound {bound_ms * 1e3:.3f} us')
 
     batch = next(train_it)
     step_ms = wall_ms(lambda: loop.run_epoch(train_it, 20, training=True),
@@ -398,6 +768,29 @@ def main(argv) -> int:
     if '--cudnn-ab' in argv:
         log('CUDNN model_step_ms, fresh process each: '
             + json.dumps(cudnn_ab()))
+    del loop, train_it, val_it
+
+    # the training step in banks mode, as the CLI runs it, and the batch
+    # pipeline alone, with float32 and int8 banks in turns
+    bank_step_ms = {'float32': [], 'int8': []}
+    bank_pipe_ms = {'float32': [], 'int8': []}
+    bank_loops = {name: TrainLoop(get_model(cfg.replace(bank_dtype=name)),
+                                  banks=banks[name]) for name in bank_step_ms}
+    for bl in bank_loops.values():
+        bl.run_epoch(None, 3, training=True, epoch=99)
+    for name in ('float32', 'int8', 'int8', 'float32'):
+        bl = bank_loops[name]
+        bank_step_ms[name].append(wall_ms(
+            lambda: bl.run_epoch(None, 20, training=True, epoch=0), 1) / 20)
+        it = iter(DevicePipeline(banks[name], cfg))
+        bank_pipe_ms[name].append(wall_ms(lambda: next(it), 20))
+    del bank_loops
+
+    # 7, 8. the CLI chain; the banks above are no longer needed
+    del banks
+    test_src = sources(1, 8, 1875, 128, (40, 130), 0, 1)
+    cli = cli_chain(dev, src, test_src)
+    del src
 
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -405,23 +798,24 @@ def main(argv) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log('STEP ' + json.dumps({
         'step_ms': step_ms, 'pipeline_ms': pipe_ms, 'model_step_ms': model_ms,
-        'batch': cfg.batch_size, 'n_frame': cfg.n_frame,
-        'train_loss': logs['loss'], 'val_loss': logs['val_loss'],
-        'card': smi}))
+        'banks_step_ms': bank_step_ms, 'banks_pipeline_ms': bank_pipe_ms,
+        'batch': cfg.batch_size,
+        'n_frame': cfg.n_frame, 'train_loss': logs['loss'],
+        'val_loss': logs['val_loss'], 'card': smi}))
+    log('CLI ' + json.dumps({k: v for k, v in cli.items()
+                             if not k.endswith('launches')}))
     log(smi)
+    runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
+            'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
+            'synth_mag_int8': (cli['int8_launches'], cli['int8_batches'])}
     log(json.dumps({'kernels': [{
-        'name': KERNEL, 'route': 'cuda',
+        'name': name, 'route': 'cuda',
         'source': 'challenge_tpu_torch/csrc/synth.cu',
         'replaces': 'challenge_tpu/ops/pallas_synth.py:79',
-        'launches': launches[KERNEL],
-        'launches_per_step': launches[KERNEL] / (TRAIN_STEPS + VAL_STEPS),
-        'max_abs_err': max(errs.values()),
-        'ms': sum(kernel_ms) / len(kernel_ms),
-        'plain_ms': sum(plain_ms) / len(plain_ms),
-        'bound_ms': bound_ms, 'bound_by': (
-            'bytes' if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-            else 'operations'),
-        'library_ms': None}]}))
+        'launches': runs[name][0].get(name, 0),
+        'launches_per_step': runs[name][0].get(name, 0) / runs[name][1],
+        'max_abs_err': max(errs[name].values()),
+        **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

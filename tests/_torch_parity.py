@@ -39,6 +39,33 @@ def strip_flat(flat, chan: int, freq: int):
     return planes.reshape(flat.shape[:-1] + (chan * freq,))
 
 
+def numpy_ordered_sum(nf, a, fma: bool):
+    """The kernel's function in numpy, slot by slot in order. fma=True
+    rounds ``acc + w * clip`` and ``re * re + im * im`` once, as an FMA
+    does (the float64 product of two float32 values is exact)."""
+    t = np.arange(nf)
+    acc = a['bgbank'][a['bidx'][:, None], a['boff'][:, None] + t[None, :]]
+    for p in ('v', 'n'):
+        if f'{p}bank' not in a:
+            continue
+        bank, idx, w = a[f'{p}bank'], a[f'{p}idx'], a[f'{p}w']
+        rows = bank.shape[1]
+        lens = a.get(f'{p}lens', np.full(idx.shape, rows))
+        for k in range(idx.shape[1]):
+            j = t[None, :] - a[f'{p}shift'][:, k, None]
+            on = (j >= 0) & (j < lens[:, k, None]) & (w[:, k, None] != 0)
+            clip = bank[idx[:, k, None], np.clip(j, 0, rows - 1)]
+            wk = w[:, k, None, None]
+            new = ((wk.astype(np.float64) * clip + acc).astype(np.float32)
+                   if fma else acc + wk * clip)
+            acc = np.where(on[..., None], new, acc)
+    h = acc.shape[-1] // 2
+    re, im = acc[..., :h], acc[..., h:]
+    sq = ((re.astype(np.float64) * re + im * im).astype(np.float32)
+          if fma else re * re + im * im)
+    return np.sqrt(sq)
+
+
 def jax_draws(banks, key, batch_size: int = BATCH, n_frame: int = N_FRAME,
               **kw):
     """JAX's ``sample_batch(..., use_pallas=True, layout='tfc',

@@ -1,6 +1,6 @@
 """The port as a package: it stands alone (no JAX, no challenge_tpu), its
-Config is the JAX package's field for field, its entry points refuse to
-fall back to the CPU quietly, the README usage runs end to end on the CPU
+Config is the JAX package's field for field, its entry points and CLIs
+refuse to fall back to the CPU quietly, the README usage runs end to end on the CPU
 when asked for it, and chip_smoke.py refuses to report without a card or
 the repo."""
 
@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20      # every module was loaded
+    # every module was loaded, the CLIs and the eval chain among them
+    assert int(out.stdout.split()[-1]) >= 32
 
 
 def test_config_equals_jax_config_field_for_field():
@@ -82,6 +83,30 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch):
     banks = build_banks(*src, n_frame=N_FRAME, device='cpu')
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DevicePipeline(banks, cfg)
+
+
+def test_clis_and_eval_do_not_fall_back_to_the_cpu(tmp_path, monkeypatch):
+    """Without a GPU and without --device cpu, both CLIs and the WAV
+    ingest of the eval chain raise before any work."""
+    from _helpers import DATA_FLAGS, make_datafiles, write_wav
+    from challenge_tpu_torch.cli import eval as eval_cli
+    from challenge_tpu_torch.cli import sj_train
+    from challenge_tpu_torch.ops.dsp import load_wav
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.chdir(tmp_path)
+    make_datafiles(tmp_path)
+    write_wav(tmp_path / 'a.wav', seconds=1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sj_train.main(['--model_type', 'vad', '--v', '8', '--bank_dtype',
+                       'int8'] + DATA_FLAGS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_cli.main(['--name', 'vad_v8_lr0.001_batch12_opt_adam_mel80_'
+                       'chan2_BCE_framelen512', '--p'])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_wav(str(tmp_path / 'a.wav'))
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        ['a.wav', 'bg.pickle', 'voice.pickle', 'labels.npy', 'noise.pickle',
+         'test_bg.pickle', 'test_voice.pickle', 'test_labels.npy'])
 
 
 def test_get_model_v8_is_full_width():

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import numpy_ordered_sum
 from challenge_tpu.ops.pallas_synth import synthesize_windows
 from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.ops.synth import (
@@ -97,33 +98,6 @@ def test_plain_matches_pallas_magnitude(name):
                                rtol=RTOL, atol=ATOL)
 
 
-def _numpy_ordered_sum(nf, a, fma: bool):
-    """The kernel's function in numpy, slot by slot in order. fma=True
-    rounds ``acc + w * clip`` and ``re * re + im * im`` once, as an FMA
-    does (the float64 product of two float32 values is exact)."""
-    t = np.arange(nf)
-    acc = a['bgbank'][a['bidx'][:, None], a['boff'][:, None] + t[None, :]]
-    for p in ('v', 'n'):
-        if f'{p}bank' not in a:
-            continue
-        bank, idx, w = a[f'{p}bank'], a[f'{p}idx'], a[f'{p}w']
-        rows = bank.shape[1]
-        lens = a.get(f'{p}lens', np.full(idx.shape, rows))
-        for k in range(idx.shape[1]):
-            j = t[None, :] - a[f'{p}shift'][:, k, None]
-            on = (j >= 0) & (j < lens[:, k, None]) & (w[:, k, None] != 0)
-            clip = bank[idx[:, k, None], np.clip(j, 0, rows - 1)]
-            wk = w[:, k, None, None]
-            new = ((wk.astype(np.float64) * clip + acc).astype(np.float32)
-                   if fma else acc + wk * clip)
-            acc = np.where(on[..., None], new, acc)
-    h = acc.shape[-1] // 2
-    re, im = acc[..., :h], acc[..., h:]
-    sq = ((re.astype(np.float64) * re + im * im).astype(np.float32)
-          if fma else re * re + im * im)
-    return np.sqrt(sq)
-
-
 @pytest.mark.parametrize('name', ['random', 'long_then_short', 'edges'])
 def test_plain_is_the_rounded_ordered_sum(name):
     """Bit for bit: the port equals the unfused ordered sum, and JAX's CPU
@@ -133,10 +107,10 @@ def test_plain_is_the_rounded_ordered_sum(name):
     out = synthesize_magnitude_plain(
         nf, **{k: torch.from_numpy(v) for k, v in a.items()})
     np.testing.assert_array_equal(out.numpy(),
-                                  _numpy_ordered_sum(nf, a, fma=False))
+                                  numpy_ordered_sum(nf, a, fma=False))
     ref = synthesize_windows(nf, **a, magnitude=True, interpret=True)
     np.testing.assert_array_equal(np.asarray(ref),
-                                  _numpy_ordered_sum(nf, a, fma=True))
+                                  numpy_ordered_sum(nf, a, fma=True))
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_counting():
