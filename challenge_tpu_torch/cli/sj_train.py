@@ -10,6 +10,13 @@ card. The run name, the checkpoint trio ({run}.h5, _SWA.h5, _sample.h5),
 the CSV log, the monitors and the callback order match the reference. The
 banks are always slim, as on the JAX CLI's accelerator path: only the flat
 layout of ``--bank_dtype`` goes to the device.
+
+The se v9 family trains in two runs. ``--pretrain True`` trains the U-Net
+and names its run ``..._weight``. Without the flag (the reference's
+``type=bool`` flag makes ``--pretrain False`` True) the run fine-tunes the
+head: it first loads ``{run}.h5`` under its own run name, as the
+reference does (sj_train.py:467-469), so the pretrain checkpoint must be
+put there.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from challenge_tpu_torch.train import (
     NO_SWA_ERROR, SWA, CSVLogger, EarlyStopping, EvalCallback,
     LearningRateScheduler, ModelCheckpoint, TensorBoard, TerminateOnNaN,
     TrainLoop, custom_scheduler, save_weights)
+from challenge_tpu_torch.train.checkpoint import load_weights
 from challenge_tpu_torch.utils.io import load_data
 
 DEVICE_FLAG = {'--device': dict(type=str, default=None,
@@ -90,6 +98,10 @@ def main(argv=None) -> str:
     n_params = sum(p.numel() for p in bundle.module.parameters())
     print(f'{type(bundle.module).__name__}: {n_params} parameters')
     print(name)
+
+    if config.model_type == 'se' and config.v == 9 and not config.pretrain:
+        loop.set_weights(load_weights(name, device))
+        print('loaded pretrained model')
 
     earlystop_monitor, checkpoint_monitor = select_monitors(config)
     callbacks = [

@@ -1,17 +1,21 @@
-// Mixture synthesis with the magnitude computed in the kernel, for float32,
-// bfloat16 and int8 banks.
+// Mixture synthesis for float32, bfloat16 and int8 banks, with the
+// magnitude computed in the kernel or the raw complex window written out.
 //
-// Replaces challenge_tpu/ops/pallas_synth.py::_kernel in its magnitude mode
-// (synthesize_windows(..., magnitude=True)): with float32 banks (mode B1,
+// Replaces challenge_tpu/ops/pallas_synth.py::_kernel, the one TPU kernel,
+// in three of its modes: the magnitude epilogue
+// (synthesize_windows(..., magnitude=True)) with float32 banks (mode B1,
 // synth_mag_f32) and with bfloat16 or int8 banks (mode B3, synth_mag_bf16
-// and synth_mag_int8), the one TPU kernel on the training path.
+// and synth_mag_int8), and the flat-complex output (mode B2, the default
+// epilogue, pallas_synth.py:279-281: synth_flat_f32, synth_flat_bf16 and
+// synth_flat_int8), which the se v9 targets call three times a batch.
 //
 // What it computes, per sample b and window row t in [0, n_frame):
 //   acc  = float(bg[bidx[b], boff[b] + t, :])               (flat row, F cols)
 //          (int8 banks: acc = float(q_bg) * bgscale[b])
 //   for each voice slot k, then each noise slot k, in slot order, w != 0:
 //     j = t - shift[b, k];  if 0 <= j < len[b, k]:  acc += w[b, k] * float(clip[j, :])
-//   out[b, t, m] = sqrt(acc[m]^2 + acc[F/2 + m]^2)          m in [0, F/2)
+//   magnitude: out[b, t, m] = sqrt(acc[m]^2 + acc[F/2 + m]^2)   m in [0, F/2)
+//   raw:       out[b, t, c] = acc[c]                             c in [0, F)
 // The flat layout is channel-major (column c*f + freq), so the real planes
 // are the first half of the columns and the imaginary planes the second.
 // Clip rows that land outside [0, n_frame) are dropped. For int8 banks the
@@ -24,37 +28,41 @@
 // a rounded add (__fmul_rn / __fadd_rn, which nvcc never contracts into an
 // FMA), in the same order as the JAX kernel and as the plain PyTorch
 // version in ops/synth.py. sqrtf is the IEEE square root (no
-// --use_fast_math); a bfloat16 output is that float32 root rounded once
-// more, to nearest even (__float2bfloat16_rn). Kernel and plain version
-// agree bit for bit.
+// --use_fast_math); a bfloat16 output is the float32 root, or the float32
+// accumulator, rounded once more, to nearest even (__float2bfloat16_rn).
+// Kernel and plain version agree bit for bit.
 //
 // Bound: bytes. Per call it must read each sample's background window
 // (n_frame x F elements of the bank type), the rows of each active clip
-// that land in the window and the slot tables, and write the magnitude
-// (n_frame x F/2 elements of the output type), each once; chip_smoke.py's
-// synth_work counts them from the draws. On the main path's draws (B=12,
-// n_frame=512, F=4*257, 7 voice and 2 noise slots) that is about 51.7 MB a
-// call for float32 banks, 26 MB for bfloat16 and 16 MB for int8, bounds of
-// about 15.4, 7.7 and 4.8 us at 3.35 TB/s. The arithmetic (2 flops per
-// element per clip, 4 and a root per magnitude) is far below the card's
-// float32 rate.
+// that land in the window and the slot tables, and write the output
+// (n_frame x F/2 elements of the output type for the magnitude, n_frame x
+// F for the raw window), each once; chip_smoke.py's synth_work counts them
+// from the draws. On the main path's draws (B=12, n_frame=512, F=4*257, 7
+// voice and 2 noise slots) the magnitude is about 51.7 MB a call for
+// float32 banks, 26 MB for bfloat16 and 16 MB for int8, bounds of about
+// 15.4, 7.7 and 4.8 us at 3.35 TB/s; the raw window writes twice the
+// output bytes. The arithmetic (2 flops per element per clip, 4 and a root
+// per magnitude) is far below the card's float32 rate.
 //
 // Design. One block per (row tile of kRows window rows, sample). Thread 0
 // reads the sample's slot table (indices, shifts, lengths, weights) and
 // keeps, in order, the active slots whose rows reach the tile; there is no
-// scalar prefetch. Each thread owns magnitude columns m (stride kThreads),
-// so neighbouring threads load neighbouring addresses of every bank row.
+// scalar prefetch. Each thread owns the column pair (m, F/2 + m) (stride
+// kThreads), so neighbouring threads load neighbouring addresses of every
+// bank row, and both epilogues read the pair from the thread's registers.
 // The complex window lives only in registers, as it lived only in VMEM on
-// the TPU: it never goes to device memory. No atomics, no shared
-// accumulator; the order of the sum is fixed. Clip rows are read from
-// device memory once per tile that needs them; staging them in shared
-// memory (cp.async / TMA) is left for later work. With 1- and 2-byte bank
-// elements one element per thread per load is a 32- or 64-byte warp
-// transaction, far from what the memory system needs to reach its rate,
-// and the time is set by the chain of dependent row loads, not by the
-// bytes: on an H100 the bf16 and int8 kernels take about as long as the
-// f32 one, about 5 and 8 times their bounds against 3 (PERF.md). Wider
-// loads are later work.
+// the TPU; the magnitude epilogue never writes it to device memory. No
+// atomics, no shared accumulator; the order of the sum is fixed. The
+// epilogue and the background scale are template flags, not runtime
+// branches: a runtime flag gave the float32 magnitude instance a stack
+// frame and cost it time (PERF.md). Clip rows are read from device memory
+// once per tile that needs them; staging them in shared memory (cp.async /
+// TMA) is left for later work. With 1- and 2-byte bank elements one
+// element per thread per load is a 32- or 64-byte warp transaction, far
+// from what the memory system needs to reach its rate, and the time is set
+// by the chain of dependent row loads, not by the bytes: on an H100 the
+// bf16 and int8 kernels take about as long as the f32 one, about 5 and 8
+// times their bounds against 3 (PERF.md). Wider loads are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,8 +88,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename T, typename Out, bool kScaled>
-__global__ void __launch_bounds__(kThreads) synth_mag_kernel(
+template <typename T, typename Out, bool kScaled, bool kMag>
+__global__ void __launch_bounds__(kThreads) synth_kernel(
     const T* __restrict__ bg, const int* __restrict__ bidx,
     const int* __restrict__ boff, long long bg_stride,
     const T* __restrict__ vbank, const int* __restrict__ vidx,
@@ -127,7 +135,7 @@ __global__ void __launch_bounds__(kThreads) synth_mag_kernel(
   const int n_slots = s_n;
   const T* win = bg + (long long)bidx[b] * bg_stride
                     + (long long)boff[b] * width;
-  Out* o = out + (long long)b * n_frame * half;
+  Out* o = out + (long long)b * n_frame * (kMag ? half : width);
   for (int m = threadIdx.x; m < half; m += kThreads) {
     for (int t = t0; t < t1; ++t) {
       float re = upcast(win[(long long)t * width + m]);
@@ -144,13 +152,18 @@ __global__ void __launch_bounds__(kThreads) synth_mag_kernel(
           im = __fadd_rn(im, __fmul_rn(s_w[k], upcast(row[half + m])));
         }
       }
-      store(o + (long long)t * half + m,
-            sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))));
+      if (kMag) {
+        store(o + (long long)t * half + m,
+              sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))));
+      } else {
+        store(o + (long long)t * width + m, re);
+        store(o + (long long)t * width + half + m, im);
+      }
     }
   }
 }
 
-template <typename T, typename Out, bool kScaled>
+template <typename T, typename Out, bool kScaled, bool kMag>
 int launch(const T* bg, const int* bidx, const int* boff, long long bg_stride,
            const T* vbank, const int* vidx, const int* vshift, const float* vw,
            const int* vlen, int n_v, int v_rows, long long v_stride,
@@ -163,8 +176,8 @@ int launch(const T* bg, const int* bidx, const int* boff, long long bg_stride,
   }
   if (batch == 0 || n_frame == 0) return 0;
   const dim3 grid((n_frame + kRows - 1) / kRows, batch);
-  synth_mag_kernel<T, Out, kScaled><<<grid, kThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
+  synth_kernel<T, Out, kScaled, kMag><<<grid, kThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
       bg, bidx, boff, bg_stride, vbank, vidx, vshift, vw, vlen, n_v, v_rows,
       v_stride, nbank, nidx, nshift, nw, nlen, n_x, n_rows, n_stride, bgscale,
       out, n_frame, width);
@@ -174,12 +187,13 @@ int launch(const T* bg, const int* bidx, const int* boff, long long bg_stride,
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError() (0
-// on success). The caller allocates `out` [batch, n_frame, width / 2]. Banks
+// on success). The caller allocates `out`: [batch, n_frame, width / 2] for
+// synth_mag_*, [batch, n_frame, width] for synth_flat_*. Banks
 // are contiguous [items, rows, width] of the entry point's element type;
 // slot tables are contiguous int32 / float32 [batch, n_v] and [batch, n_x];
 // the noise pointers may be null when n_x == 0. `bgscale` is [batch]
 // float32 for int8 banks and must be null for the other two.
-#define SYNTH_ENTRY(NAME, T, OUT, SCALED)                                     \
+#define SYNTH_ENTRY(NAME, T, OUT, SCALED, MAG)                                \
   extern "C" int NAME(                                                        \
       const T* bg, const int* bidx, const int* boff, long long bg_stride,     \
       const T* vbank, const int* vidx, const int* vshift, const float* vw,    \
@@ -191,13 +205,15 @@ int launch(const T* bg, const int* bidx, const int* boff, long long bg_stride,
     if ((bgscale != nullptr) != SCALED) {                                     \
       return static_cast<int>(cudaErrorInvalidValue);                         \
     }                                                                         \
-    return launch<T, OUT, SCALED>(bg, bidx, boff, bg_stride, vbank, vidx,     \
-                                  vshift, vw, vlen, n_v, v_rows, v_stride,    \
-                                  nbank, nidx, nshift, nw, nlen, n_x, n_rows, \
-                                  n_stride, bgscale, out, batch, n_frame,     \
-                                  width, stream);                             \
+    return launch<T, OUT, SCALED, MAG>(                                       \
+        bg, bidx, boff, bg_stride, vbank, vidx, vshift, vw, vlen, n_v,        \
+        v_rows, v_stride, nbank, nidx, nshift, nw, nlen, n_x, n_rows,         \
+        n_stride, bgscale, out, batch, n_frame, width, stream);               \
   }
 
-SYNTH_ENTRY(synth_mag_f32, float, float, false)
-SYNTH_ENTRY(synth_mag_bf16, __nv_bfloat16, __nv_bfloat16, false)
-SYNTH_ENTRY(synth_mag_int8, int8_t, __nv_bfloat16, true)
+SYNTH_ENTRY(synth_mag_f32, float, float, false, true)
+SYNTH_ENTRY(synth_mag_bf16, __nv_bfloat16, __nv_bfloat16, false, true)
+SYNTH_ENTRY(synth_mag_int8, int8_t, __nv_bfloat16, true, true)
+SYNTH_ENTRY(synth_flat_f32, float, float, false, false)
+SYNTH_ENTRY(synth_flat_bf16, __nv_bfloat16, __nv_bfloat16, false, false)
+SYNTH_ENTRY(synth_flat_int8, int8_t, __nv_bfloat16, true, false)

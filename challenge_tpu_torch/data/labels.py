@@ -15,6 +15,25 @@ def to_frame_labels(y):
 def label_downsample(y, resolution: int = 32):
     """Avg-pool x``resolution`` over time, then threshold 0.5 (reference:
     data_utils.py:85-97, without its stray batch-axis slice, as in JAX).
-    y: [B, T, C] -> [B, ceil(T / resolution), C]."""
+    y: [B, T, C] -> [B, ceil(T / resolution), C]. Of a tuple of targets
+    only the first, the frame labels, is pooled (labels.py:60-63)."""
+    if isinstance(y, tuple):
+        return (label_downsample(y[0], resolution),) + y[1:]
     y = avg_pool_same(y, resolution, resolution)
     return (y >= 0.5).to(y.dtype)
+
+
+def speech_enhancement_preprocess(x, y=None):
+    """Drop the DC row and keep the real half of a complex spectrogram
+    [..., freq, T, chan] (counterpart: ``labels.py:87-99``; reference:
+    data_utils.py:139-148). The targets ``(label, only_voice, only_noise)``
+    become ``(frame labels, only_voice', only_noise')``, the last two with
+    the reference quirk kept: they keep only channel 0, since ``half`` is
+    half of the already halved channel count, so they broadcast against
+    the model's two-channel outputs in the loss."""
+    x = x[..., 1:, :, :x.shape[-1] // 2]
+    if y is None:
+        return x
+    half = x.shape[-1] // 2
+    return x, (to_frame_labels(y[0]), y[1][..., 1:, :, :half],
+               y[2][..., 1:, :, :half])

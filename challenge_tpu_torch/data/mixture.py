@@ -1,5 +1,5 @@
 """On-device mixture synthesis (counterpart: ``challenge_tpu/data/mixture.py``
-``sample_batch``, its float32 magnitude path; reference: pipeline.py:6-110).
+``sample_batch``, its Pallas paths; reference: pipeline.py:6-110).
 
 A batch is made in two steps so that tests can feed JAX's draws to the port:
 
@@ -10,7 +10,9 @@ A batch is made in two steps so that tests can feed JAX's draws to the port:
   weights (a rejected or inactive slot has weight 0);
 * :func:`synthesize` turns draws into ``(magnitude, frame labels)``: the
   magnitude through the CUDA synthesis kernel (``ops/synth.py``), the
-  labels by placing each accepted voice's energy mask at its shift.
+  labels by placing each accepted voice's energy mask at its shift;
+  :func:`synthesize_se` turns them into the complex spectrogram and the
+  se family's targets, through the flat-complex kernel.
 
 The upper bounds of the voice and noise counts are exclusive, as in the
 reference (tf.random.uniform's exclusive maxval, pipeline.py:43,87): a
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from challenge_tpu_torch.data.specset import SpecBank
-from challenge_tpu_torch.ops.synth import synthesize_magnitude
+from challenge_tpu_torch.ops.synth import synthesize_flat, synthesize_magnitude
 
 
 class Banks(NamedTuple):
@@ -220,7 +222,53 @@ def synthesize(banks: Banks, draws: Draws):
     A voice slot carries labels iff its drawn weight is nonzero: weights
     are ``accept * 10**-u`` with ``10**-u > 0``."""
     d = draws
-    mag = synthesize_magnitude(*synth_args(banks, d))
-    label = _frame_labels(banks, d.vidx, d.vshift, d.n_frame) \
+    return synthesize_magnitude(*synth_args(banks, d)), _labels(banks, d)
+
+
+def _labels(banks: Banks, d: Draws):
+    return _frame_labels(banks, d.vidx, d.vshift, d.n_frame) \
         * (d.vw != 0).to(torch.float32)[..., None, None]
-    return mag, label
+
+
+def se_synth_args(banks: Banks, draws: Draws):
+    """The arguments of the se v9 targets' three flat-complex kernel calls
+    (mixture.py:493-527), each a sub-mix of the first in the same order:
+
+    * the full mix, ``synth_args``;
+    * ``only_noise``: the background and the noises, every voice weight
+      zeroed, so that the kernel skips the voices;
+    * ``only_voice``: the voices accumulated from zeros, over a one-item
+      all-zero background bank (with a unit background scale for int8
+      banks), so that quiet voices do not cancel against the background.
+    """
+    args = synth_args(banks, draws)
+    (n_frame, bg, bidx, boff, vbank, vidx, vshift, vw, nbank, nidx, nshift,
+     nw, vlens, nlens, bgscale) = args
+    only_noise = args[:7] + (torch.zeros_like(vw),) + args[8:]
+    zbank = torch.zeros((1, n_frame, bg.shape[-1]), dtype=bg.dtype,
+                        device=bg.device)
+    only_voice = (n_frame, zbank, torch.zeros_like(bidx),
+                  torch.zeros_like(boff), vbank, vidx, vshift, vw, None, None,
+                  None, None, vlens, None,
+                  None if bgscale is None else torch.ones_like(bgscale))
+    return args, only_noise, only_voice
+
+
+def synthesize_se(banks: Banks, draws: Draws):
+    """Draws -> ``(spec, (label, only_voice, only_noise))`` (counterpart:
+    the ``seperate_noise_voice`` branch of ``sample_batch``,
+    mixture.py:489-532): complex spectrograms in the reference layout
+    [B, freq, n_frame, chan], from the flat-complex kernel's three calls
+    of :func:`se_synth_args`, and the per-voice frame labels [B, V,
+    n_frame, C]. Spectrograms are float32 for float32 banks and bfloat16
+    for bfloat16 and int8 banks."""
+    chan = banks.backgrounds.chan
+
+    def unflat(flat):                   # [B, T, chan * freq] -> [B, f, T, c]
+        return flat.reshape(flat.shape[0], draws.n_frame, chan, -1).permute(
+            0, 3, 1, 2)
+
+    full, only_noise, only_voice = (synthesize_flat(*a) for a in
+                                    se_synth_args(banks, draws))
+    return unflat(full), (_labels(banks, draws), unflat(only_voice),
+                          unflat(only_noise))

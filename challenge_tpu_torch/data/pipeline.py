@@ -5,7 +5,10 @@ its ``variant='sj'`` fused-magnitude branch, ``DevicePipeline``).
 One batch: draws -> synthesized magnitude (CUDA kernel) and frame labels ->
 SpecAugment -> [stft filter] -> mel -> [minmax] -> log -> label downsample.
 The mel is a plain matmul on the ``[B, T, 2, freq]`` magnitudes; the JAX
-package's block-diagonal flat GEMM is a TPU layout device.
+package's block-diagonal flat GEMM is a TPU layout device. The se v9
+family takes another branch: draws -> complex spectrogram and targets
+(three flat-complex kernel calls) -> DC row dropped, real half kept ->
+label downsample, with no SpecAugment, mel or log.
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ import numpy as np
 import torch
 
 from challenge_tpu_torch.config import Config
-from challenge_tpu_torch.data.labels import label_downsample, to_frame_labels
-from challenge_tpu_torch.data.mixture import Banks, draw, synthesize
+from challenge_tpu_torch.data.labels import (
+    label_downsample, speech_enhancement_preprocess, to_frame_labels)
+from challenge_tpu_torch.data.mixture import (
+    Banks, draw, synthesize, synthesize_se)
 from challenge_tpu_torch.data.specset import build_bank, remap_labels
 from challenge_tpu_torch.device import resolve_device
 from challenge_tpu_torch.ops.augment import batch_mask_keep
@@ -58,20 +63,21 @@ class FeatureFn:
     """``(gen, banks) -> (x [B, n_mels, n_frame, 2], y)`` for the
     ``sj_train`` configuration with ``n_chan == 2`` (counterpart:
     ``make_feature_fn(config, training, variant='sj')`` on its fused
-    magnitude branch, pipeline.py:254-337).
+    magnitude branch, pipeline.py:254-337); for se v9 ``(x [B, 256,
+    n_frame, 2], (frame labels [B, n_frame / 32, C], only_voice,
+    only_noise [B, 256, n_frame, 1]))`` (pipeline.py:265-306), with ``x``
+    and the targets in bfloat16 for bfloat16 and int8 banks.
 
     :meth:`features` is the part after synthesis, with the SpecAugment
     masks passed in, so tests can feed it JAX's magnitudes and masks;
     :meth:`mel` is its pre-log half."""
 
     def __init__(self, config: Config, training: bool = True, device=None):
-        if config.model_type == 'se':
-            raise NotImplementedError(
-                'the se family is not ported yet (ROADMAP A11)')
         if config.n_chan != 2:
             raise NotImplementedError(
                 f'n_chan={config.n_chan} is not ported yet (ROADMAP A10)')
         self.config = config
+        self.se_v9 = config.model_type == 'se' and config.v == 9
         self.training = training
         self.device = resolve_device(device)
         self.freq = 257
@@ -125,6 +131,9 @@ class FeatureFn:
         d = draw(gen, banks, cfg.batch_size, cfg.n_frame,
                  max_voices=cfg.max_voices, max_noises=cfg.max_noises,
                  min_ratio=1.0, snr=cfg.snr)
+        if self.se_v9:
+            x, y = speech_enhancement_preprocess(*synthesize_se(banks, d))
+            return x, label_downsample(y, 32)
         mag, y = synthesize(banks, d)
         tmask = fmask = None
         if self.training:

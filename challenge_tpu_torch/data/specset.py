@@ -35,6 +35,8 @@ class SpecBank:
               ``flat`` rows can take at any offset the background draw
               produces and still equal the reference's tile-then-crop
               window: ``min(lens)``, or ``wrap_frames`` for a wrapped bank.
+    chan:     the spectrograms' channel count; ``flat`` column c * freq + f
+              holds channel c of frequency row f.
     flat_scale: [N] float32 dequantization scales of an int8 ``flat``
               (item i holds ``flat[i] * flat_scale[i]``), else None.
     """
@@ -42,6 +44,7 @@ class SpecBank:
     lens: torch.Tensor
     pos_mask: torch.Tensor
     contig_exact_frames: int
+    chan: int
     flat_scale: Optional[torch.Tensor] = None
 
     @property
@@ -119,7 +122,8 @@ def build_bank(specs: Sequence[np.ndarray], t_max: Optional[int] = None,
     return SpecBank(flat=torch.from_numpy(flat).to(flat_dtype).to(device),
                     lens=torch.from_numpy(lens).to(device),
                     pos_mask=torch.from_numpy(pos_mask).to(device),
-                    contig_exact_frames=contig, flat_scale=flat_scale)
+                    contig_exact_frames=contig, chan=chan,
+                    flat_scale=flat_scale)
 
 
 def remap_labels(labels: np.ndarray, n_classes: int) -> np.ndarray:

@@ -2,8 +2,10 @@
 ``challenge_tpu/evaluate/infer.py``; reference: metrics.py:31-90).
 
 Per clip: WAV -> complex spectrogram (``ops/dsp.py``) -> eval STFT filter
--> magnitude -> mel -> minmax -> log -> windows of ``n_frame`` frames every
-``overlap_hop`` -> model forward over all windows at once -> label-rate
+-> magnitude -> mel -> minmax -> log (for the se family instead: the DC row
+dropped and the real half kept) -> windows of ``n_frame`` frames every
+``overlap_hop`` -> model forward over all windows at once (the se
+cascade's class head) -> label-rate
 upsampling -> overlap-add averaged by the window count -> 31-frame average
 pool -> 124-frame max pool -> ``>= 0.5``; then events and the per-clip ER
 on the host (``events.py``). The JAX package's one-program dev-set path
@@ -18,7 +20,8 @@ Reference quirks kept, as in JAX (infer.py:10-17):
 * the average pool divides by the count of in-bounds frames (Keras
   'same'), and the max pool pads 61 frames before and 62 after with -inf,
   as TF's 'SAME' does for an even window.
-Only ``vad`` models with ``n_chan == 2`` are ported (ROADMAP A10, A11).
+The vad and se v9 families with ``n_chan == 2`` are ported; the other
+channel counts wait for ROADMAP A10 and the eff family for A12.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from challenge_tpu_torch.data.labels import speech_enhancement_preprocess
 from challenge_tpu_torch.data.pipeline import LABEL_DOWNSAMPLE_MODELS
 from challenge_tpu_torch.evaluate.events import (
     get_er, get_start_end_frame, output_to_metric)
@@ -75,10 +79,9 @@ def max_pool_1d_same(x, pool: int):
 
 
 def _check_ported(config) -> None:
-    if config.model_type != 'vad':
+    if config.model_type == 'eff':
         raise NotImplementedError(
-            f'evaluating model_type={config.model_type!r} is not ported yet '
-            '(ROADMAP ' + ('A11)' if config.model_type == 'se' else 'A12)'))
+            'evaluating the eff family is not ported yet (ROADMAP A12)')
     if config.n_chan != 2:
         raise NotImplementedError(
             f'n_chan={config.n_chan} is not ported yet (ROADMAP A10)')
@@ -92,15 +95,19 @@ def spec_to_scores(config, module, spec, overlap_hop: int = 512):
     with ``n_valid=None``)."""
     _check_ported(config)
     n_frame = config.n_frame
-    keep = torch.ones(spec.shape[0], device=spec.device)
-    keep[1:FILTER_ROWS + 1] = 0.0
-    spec = spec * keep[:, None, None]                 # eval stft_filter
-    half = spec.shape[-1] // 2
-    re, im = spec[..., :half], spec[..., half:]
-    mag = torch.sqrt(re * re + im * im)               # [freq, T, chan]
-    melm = torch.tensor(mel_filterbank(config.n_mels, spec.shape[0]),
-                        device=spec.device)
-    x = torch.log(minmax(magnitude_to_mel(mag, melm)) + EPSILON)
+    se = config.model_type == 'se'
+    if se:
+        x = speech_enhancement_preprocess(spec)      # [256, T, chan / 2]
+    else:
+        keep = torch.ones(spec.shape[0], device=spec.device)
+        keep[1:FILTER_ROWS + 1] = 0.0
+        spec = spec * keep[:, None, None]             # eval stft_filter
+        half = spec.shape[-1] // 2
+        re, im = spec[..., :half], spec[..., half:]
+        mag = torch.sqrt(re * re + im * im)           # [freq, T, chan]
+        melm = torch.tensor(mel_filterbank(config.n_mels, spec.shape[0]),
+                            device=spec.device)
+        x = torch.log(minmax(magnitude_to_mel(mag, melm)) + EPSILON)
 
     frame_len = x.shape[-2]
     windows = frame_signal(x, n_frame, overlap_hop, axis=-2)
@@ -108,6 +115,8 @@ def spec_to_scores(config, module, spec, overlap_hop: int = 512):
     covered = (windows.shape[0] - 1) * overlap_hop + n_frame
     module.eval()
     preds = module(windows[..., :config.n_chan].contiguous())   # [W, T, C]
+    if se:
+        preds = preds[0]                              # the class head
     if config.v in LABEL_DOWNSAMPLE_MODELS:
         preds = torch.repeat_interleave(preds, n_frame // preds.shape[-2],
                                         dim=-2)       # UpSampling1D

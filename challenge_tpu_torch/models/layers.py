@@ -38,6 +38,17 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
         weight.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
 
 
+def kernel_fan_in(layer: nn.Module) -> int:
+    """flax's LeCun fan-in of a conv or transposed-conv layer's kernel,
+    in * kh * kw (flax keeps both as [kh, kw, in, out]). torch keeps a
+    transposed conv's weight as [in, out, kh, kw], where
+    ``weight[0].numel()`` would be out * kh * kw."""
+    w = layer.weight
+    if isinstance(layer, nn.ConvTranspose2d):
+        return w.shape[0] * w[0, 0].numel()
+    return w[0].numel()
+
+
 class BatchNorm(nn.Module):
     """Keras-default BatchNormalization over every axis but ``feature_dim``."""
 
@@ -92,7 +103,7 @@ class ConvMPBlock(nn.Module):
 
     def reset_parameters(self, gen=None) -> None:
         for conv, bn in zip(self.convs, self.bns):
-            lecun_normal_(conv.weight, conv.weight[0].numel(), gen)
+            lecun_normal_(conv.weight, kernel_fan_in(conv), gen)
             bn.reset_parameters()
 
     def forward(self, x):

@@ -4,8 +4,9 @@ reference: sj_train.py:214-255, ``define_keras_model``).
 A VGG-style CNN over [B, n_mels, n_frame, n_chan] log-mel inputs, then a
 time-major MLP head. The public input layout is JAX's; the module permutes
 to NCHW inside. The versions without extra layers (v1-v5 and v8, which only
-widens the base filters to 48) are built; v6, v7 and v9 add layers that are
-not ported yet.
+widens the base filters to 48) are built, and every version as the se
+cascade's head (``vad_variant=False``), which has none of the extra layers;
+the vad family's v6, v7 and v9 add layers that are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,15 +23,19 @@ _NOT_PORTED = {6: 'v6 smoothing pools', 7: 'v7 bottleneck',
 
 
 class VADModel(nn.Module):
-    """``define_keras_model`` parity for the vad family (sigmoid output).
+    """``define_keras_model`` parity. ``vad_variant`` is True for the vad
+    family and False for the head of the se cascade, which skips the
+    version-specific layers; ``final_act`` is 'sigmoid' for the vad family
+    and 'relu' for that head (reference: sj_train.py:254).
 
     n_mels and n_chan fix the head's input width, which flax infers at
     init."""
 
     def __init__(self, v: int = 1, n_classes: int = 3, base_fsize: int = 32,
-                 td_dim: int = 1024, n_mels: int = 80, n_chan: int = 2):
+                 td_dim: int = 1024, n_mels: int = 80, n_chan: int = 2,
+                 vad_variant: bool = True, final_act: str = 'sigmoid'):
         super().__init__()
-        if v in _NOT_PORTED:
+        if vad_variant and v in _NOT_PORTED:
             raise NotImplementedError(
                 f'VADModel {_NOT_PORTED[v]} is not ported yet (ROADMAP A10)')
         self.v = v
@@ -47,8 +52,9 @@ class VADModel(nn.Module):
             FullyConnectedLayer(td_dim, 256),
             FullyConnectedLayer(256, 128),
             FullyConnectedLayer(128, 64),
-            FullyConnectedLayer(64, n_classes, act=torch.sigmoid,
-                                use_bn=False),
+            FullyConnectedLayer(
+                64, n_classes, use_bn=False,
+                act=torch.sigmoid if final_act == 'sigmoid' else F.relu),
         ])
 
     def reset_parameters(self, gen: torch.Generator = None) -> None:

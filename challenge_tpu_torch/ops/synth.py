@@ -1,22 +1,25 @@
-"""Mixture synthesis with the magnitude computed in the kernel
-(counterpart: ``challenge_tpu/ops/pallas_synth.py``, magnitude mode).
+"""Mixture synthesis (counterpart: ``challenge_tpu/ops/pallas_synth.py``,
+its magnitude and flat-complex modes).
 
-``synthesize_magnitude`` is the wrapper of the CUDA kernels in
-``csrc/synth.cu``, which replace ``pallas_synth.py::_kernel`` in its
-magnitude mode: ``synth_mag_f32`` for float32 banks (B1), ``synth_mag_bf16``
-and ``synth_mag_int8`` for bfloat16 and int8 banks (B3). Per sample it takes
-the background window, adds each active voice clip and then each active
-noise clip, in slot order, at its row shift, drops rows outside the window,
-and returns ``sqrt(re^2 + im^2)`` over the flat layout's column halves. Bank
-elements are upcast to float32 and the sum is taken in float32 whatever
-their type; int8 banks are dequantized by the background scale ``bgscale``
-and by clip scales the caller has folded into the weights. The complex
-window never reaches device memory. See the source for its bound and
-design.
+``synthesize_magnitude`` and ``synthesize_flat`` are the wrappers of the
+CUDA kernels in ``csrc/synth.cu``, which replace ``pallas_synth.py::_kernel``.
+Per sample both take the background window, add each active voice clip and
+then each active noise clip, in slot order, at its row shift, and drop rows
+outside the window. Bank elements are upcast to float32 and the sum is
+taken in float32 whatever their type; int8 banks are dequantized by the
+background scale ``bgscale`` and by clip scales the caller has folded into
+the weights. They differ in the epilogue:
 
-``synthesize_magnitude_plain`` computes the same ordered sum with separate
-PyTorch ops. The wrapper uses it only for tensors on the CPU; for CUDA
-tensors it launches a kernel or raises.
+* ``synthesize_magnitude`` returns ``sqrt(re^2 + im^2)`` over the flat
+  layout's column halves, and the complex window never reaches device
+  memory: ``synth_mag_f32`` for float32 banks (B1), ``synth_mag_bf16`` and
+  ``synth_mag_int8`` for bfloat16 and int8 banks (B3);
+* ``synthesize_flat`` returns the window itself, the flat-complex output
+  (B2): ``synth_flat_f32``, ``synth_flat_bf16`` and ``synth_flat_int8``.
+
+See the source for the kernels' bound and design. ``*_plain`` compute the
+same ordered sum with separate PyTorch ops. The wrappers use them only for
+tensors on the CPU; for CUDA tensors they launch a kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,10 +30,14 @@ import torch
 
 from challenge_tpu_torch.ops import cuda
 
-# bank dtype -> (kernel name, output dtype)
+# bank dtype -> (magnitude kernel, output dtype); the output dtype is also
+# that of the flat-complex kernel of FLAT_KERNELS
 KERNELS = {torch.float32: ('synth_mag_f32', torch.float32),
            torch.bfloat16: ('synth_mag_bf16', torch.bfloat16),
            torch.int8: ('synth_mag_int8', torch.bfloat16)}
+FLAT_KERNELS = {torch.float32: 'synth_flat_f32',
+                torch.bfloat16: 'synth_flat_bf16',
+                torch.int8: 'synth_flat_int8'}
 MAX_SLOTS = 32      # voice + noise slots per sample the kernel takes
 
 
@@ -49,16 +56,12 @@ def _sources(vbank, vidx, vshift, vw, nbank, nidx, nshift, nw, vlens, nlens):
     return out
 
 
-def synthesize_magnitude_plain(n_frame: int, bgbank, bidx, boff,
-                               vbank, vidx, vshift, vw,
-                               nbank=None, nidx=None, nshift=None, nw=None,
-                               vlens=None, nlens=None, bgscale=None):
-    """The kernel's function as separate PyTorch ops: gather the background
-    windows (upcast to float32, times ``bgscale`` for int8 banks), then for
-    each slot in order ``acc = acc + w * clip`` where the slot is active and
-    its shifted rows cover the window row, then the magnitude. Returns
-    [B, n_frame, F/2] in the kernel's output dtype."""
-    out_dtype = KERNELS[bgbank.dtype][1]
+def _ordered_sum(n_frame: int, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                 nbank, nidx, nshift, nw, vlens, nlens, bgscale):
+    """The kernels' float32 window [B, n_frame, F] as separate PyTorch ops:
+    gather the background windows (upcast to float32, times ``bgscale``
+    for int8 banks), then for each slot in order ``acc = acc + w * clip``
+    where the slot is active and its shifted rows cover the window row."""
     t = torch.arange(n_frame, device=bgbank.device)
     acc = bgbank[bidx.long()[:, None], boff.long()[:, None] + t[None, :]]
     acc = acc.float()
@@ -74,13 +77,38 @@ def synthesize_magnitude_plain(n_frame: int, bgbank, bidx, boff,
             clip = bank[idx[:, k, None].long(), j.clamp(0, rows - 1)]  # [B,T,F]
             acc = torch.where(valid[..., None],
                               acc + w[:, k, None, None] * clip.float(), acc)
+    return acc
+
+
+def synthesize_magnitude_plain(n_frame: int, bgbank, bidx, boff,
+                               vbank, vidx, vshift, vw,
+                               nbank=None, nidx=None, nshift=None, nw=None,
+                               vlens=None, nlens=None, bgscale=None):
+    """The magnitude kernels' function as separate PyTorch ops: the ordered
+    sum, then the magnitude. Returns [B, n_frame, F/2] in the kernel's
+    output dtype."""
+    acc = _ordered_sum(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                       nbank, nidx, nshift, nw, vlens, nlens, bgscale)
     half = acc.shape[-1] // 2
     re, im = acc[..., :half], acc[..., half:]
     # the IEEE float32 root, as CUDA's sqrtf gives it: torch's float32 sqrt
     # on the CPU is 1 ulp off for some inputs; a float64 root rounded once
     # to float32 is exact. A bfloat16 output rounds that float32 root once
     # more, as __float2bfloat16_rn does.
+    out_dtype = KERNELS[bgbank.dtype][1]
     return torch.sqrt((re * re + im * im).double()).float().to(out_dtype)
+
+
+def synthesize_flat_plain(n_frame: int, bgbank, bidx, boff,
+                          vbank, vidx, vshift, vw,
+                          nbank=None, nidx=None, nshift=None, nw=None,
+                          vlens=None, nlens=None, bgscale=None):
+    """The flat-complex kernels' function as separate PyTorch ops: the
+    ordered sum, rounded once to the kernel's output dtype (to nearest
+    even, as __float2bfloat16_rn). Returns [B, n_frame, F]."""
+    acc = _ordered_sum(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                       nbank, nidx, nshift, nw, vlens, nlens, bgscale)
+    return acc.to(KERNELS[bgbank.dtype][1])
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
@@ -100,25 +128,13 @@ def _check(name, x, dtype, shape=None, device=None):
         raise ValueError(f'{name}: must be contiguous')
 
 
-def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
-                         vbank, vidx, vshift, vw,
-                         nbank=None, nidx=None, nshift=None, nw=None,
-                         vlens=None, nlens=None, bgscale=None):
-    """Synthesized magnitudes [B, n_frame, F/2]: float32 for float32 banks,
-    bfloat16 for bfloat16 and int8 banks.
-
-    bgbank/vbank/nbank: flat banks [N, rows, F] of one dtype (float32,
-    bfloat16 or int8; F = 4 * freq, channel-major). bidx/boff: [B] int32
-    background item and window start; the window rows
-    ``boff .. boff + n_frame`` must lie inside the bank
-    (``build_bank(..., wrap_frames=n_frame)`` guarantees it). vidx/vshift:
-    [B, V] int32 clip item and row shift (clip row j lands on window row
-    j + shift); vw: [B, V] float32 weights, 0 for an inactive slot, with an
-    int8 bank's clip scales folded in; vlens: [B, V] int32 clip lengths
-    (default: the bank's rows). Likewise for the optional noises.
-    bgscale: [B] float32 background dequantization scales, given iff the
-    banks are int8. Same argument order as the JAX ``synthesize_windows``.
-    """
+def _launch(flat: bool, n_frame: int, bgbank, bidx, boff,
+            vbank, vidx, vshift, vw, nbank, nidx, nshift, nw, vlens, nlens,
+            bgscale):
+    """Check the arguments, then run the plain version on the CPU or launch
+    the magnitude (``flat=False``) or flat-complex kernel on CUDA."""
+    plain = synthesize_flat_plain if flat else synthesize_magnitude_plain
+    what = plain.__name__[:-len('_plain')]
     device, dtype = bgbank.device, bgbank.dtype
     if dtype not in KERNELS:
         raise TypeError(f'bank dtype {dtype}: expected one of '
@@ -126,13 +142,12 @@ def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
     if (bgscale is not None) != (dtype == torch.int8):
         raise ValueError('bgscale is required iff the banks are int8')
     if device.type == 'cpu':
-        return synthesize_magnitude_plain(
-            n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
-            nbank, nidx, nshift, nw, vlens, nlens, bgscale)
+        return plain(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                     nbank, nidx, nshift, nw, vlens, nlens, bgscale)
     if device.type != 'cuda':
-        raise ValueError(f'synthesize_magnitude: unsupported device {device}')
+        raise ValueError(f'{what}: unsupported device {device}')
 
-    name, out_dtype = KERNELS[dtype]
+    name = FLAT_KERNELS[dtype] if flat else KERNELS[dtype][0]
     b, width = bidx.shape[0], bgbank.shape[-1]
     if width % 2:
         raise ValueError(f'flat width {width} must be even (re | im halves)')
@@ -154,11 +169,11 @@ def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
         if bank.ndim != 3 or bank.shape[-1] != width:
             raise ValueError(f'{name_} bank: expected [N, rows, {width}], '
                              f'got {tuple(bank.shape)}')
-        for what, x, dt in (('idx', idx, torch.int32),
-                            ('shift', shift, torch.int32),
-                            ('w', w, torch.float32),
-                            ('lens', lens, torch.int32)):
-            _check(f'{name_} {what}', x, dt, (b, k), device)
+        for what_, x, dt in (('idx', idx, torch.int32),
+                             ('shift', shift, torch.int32),
+                             ('w', w, torch.float32),
+                             ('lens', lens, torch.int32)):
+            _check(f'{name_} {what_}', x, dt, (b, k), device)
         args += [bank.data_ptr(), idx.data_ptr(), shift.data_ptr(),
                  w.data_ptr(), lens.data_ptr(), k, bank.shape[1],
                  bank.shape[1] * width]
@@ -168,8 +183,8 @@ def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
         raise ValueError(f'{n_slots} clip slots per sample; the kernel '
                          f'takes at most {MAX_SLOTS}')
 
-    out = torch.empty((b, n_frame, width // 2), dtype=out_dtype,
-                      device=device)
+    out = torch.empty((b, n_frame, width if flat else width // 2),
+                      dtype=KERNELS[dtype][1], device=device)
     fn = getattr(cuda.load('synth'), name)
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -183,3 +198,39 @@ def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
         raise RuntimeError(f'{name} launch failed: CUDA error {err}')
     cuda.LAUNCHES[name] += 1
     return out
+
+
+def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
+                         vbank, vidx, vshift, vw,
+                         nbank=None, nidx=None, nshift=None, nw=None,
+                         vlens=None, nlens=None, bgscale=None):
+    """Synthesized magnitudes [B, n_frame, F/2]: float32 for float32 banks,
+    bfloat16 for bfloat16 and int8 banks.
+
+    bgbank/vbank/nbank: flat banks [N, rows, F] of one dtype (float32,
+    bfloat16 or int8; F = 4 * freq, channel-major). bidx/boff: [B] int32
+    background item and window start; the window rows
+    ``boff .. boff + n_frame`` must lie inside the bank
+    (``build_bank(..., wrap_frames=n_frame)`` guarantees it). vidx/vshift:
+    [B, V] int32 clip item and row shift (clip row j lands on window row
+    j + shift); vw: [B, V] float32 weights, 0 for an inactive slot, with an
+    int8 bank's clip scales folded in; vlens: [B, V] int32 clip lengths
+    (default: the bank's rows). Likewise for the optional noises.
+    bgscale: [B] float32 background dequantization scales, given iff the
+    banks are int8. Same argument order as the JAX ``synthesize_windows``.
+    """
+    return _launch(False, n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
+                   vw, nbank, nidx, nshift, nw, vlens, nlens, bgscale)
+
+
+def synthesize_flat(n_frame: int, bgbank, bidx, boff,
+                    vbank, vidx, vshift, vw,
+                    nbank=None, nidx=None, nshift=None, nw=None,
+                    vlens=None, nlens=None, bgscale=None):
+    """The synthesized complex windows [B, n_frame, F] in the flat layout
+    (column c * freq + f; real planes first): float32 for float32 banks,
+    bfloat16 for bfloat16 and int8 banks. Arguments and checks as
+    :func:`synthesize_magnitude`; the JAX ``synthesize_windows`` with
+    neither ``magnitude`` nor ``mel``."""
+    return _launch(True, n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
+                   vw, nbank, nidx, nshift, nw, vlens, nlens, bgscale)

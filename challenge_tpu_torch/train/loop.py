@@ -76,12 +76,16 @@ class TrainLoop:
                               seed=int(seed.generate_state(1)[0]),
                               device=self.bundle.device)
 
-    @staticmethod
-    def _finalize(sums, count):
+    def _finalize(self, sums, count):
+        # a multi-output model logs its class head's metrics under Keras'
+        # per-head names (loop.py:120-133): class_er, class_f1_score, ...
+        prefix = 'class_' if self.bundle.multi_output else ''
         logs = {}
         for k, v in sums.items():
             if k == 'f1_counts':
-                logs['f1_score'] = float(f1_from_counts(v.tolist()))
+                logs[prefix + 'f1_score'] = float(f1_from_counts(v.tolist()))
+            elif k in ('cos_sim', 'er'):
+                logs[prefix + k] = float(v) / count
             else:
                 logs[k] = float(v) / count
         return logs

@@ -9,30 +9,50 @@ import torch
 
 
 # ------------------------------------------------------------------- AGC
-def unitwise_norm(x):
+def unitwise_norm(x, transposed: bool = False):
     """NFNet unitwise L2 norm (reference: utils.py:350-366) in PyTorch
     layouts: the full norm of a scalar or vector, per output row of a
     Linear weight [out, in] (flax: per column of [in, out]) and per output
-    channel of an OIHW conv weight (flax: over HWI of HWIO)."""
+    channel of an OIHW conv weight (flax: over HWI of HWIO). The JAX
+    package reduces a flax ConvTranspose kernel [kh, kw, in, out] over
+    (0, 1, 2) too, per output channel, which for ``transposed`` weights in
+    torch's [in, out, kh, kw] layout is dims (0, 2, 3)."""
     if x.ndim <= 1:
         return x.square().sum().sqrt()
     if x.ndim == 2:
         return x.square().sum(dim=1, keepdim=True).sqrt()
     if x.ndim == 4:
-        return x.square().sum(dim=(1, 2, 3), keepdim=True).sqrt()
+        dims = (0, 2, 3) if transposed else (1, 2, 3)
+        return x.square().sum(dim=dims, keepdim=True).sqrt()
     raise ValueError(f'unitwise_norm takes rank 0, 1, 2 or 4 parameters, '
                      f'got {tuple(x.shape)}')
 
 
+def transposed_weights(module: torch.nn.Module):
+    """One flag per tensor of ``module.parameters()``: True for the weight
+    of a transposed convolution, whose layout is [in, out, kh, kw]."""
+    owners = dict(module.named_modules())
+    flags = []
+    for name, _ in module.named_parameters():
+        owner, _, leaf = name.rpartition('.')
+        flags.append(leaf == 'weight' and isinstance(
+            owners[owner], torch.nn.ConvTranspose2d))
+    return flags
+
+
 def adaptive_clip_grad(params, grads, clip_factor: float = 0.01,
-                       eps: float = 1e-3):
+                       eps: float = 1e-3, transposed=None):
     """Adaptive gradient clipping (reference: sj_train.py:145-155): scale
     each gradient unit down where its norm exceeds clip_factor x the
-    parameter unit's norm. Returns new gradients."""
+    parameter unit's norm. ``transposed`` flags the transposed-conv
+    weights (:func:`transposed_weights`); default none. Returns new
+    gradients."""
     out = []
-    for p, g in zip(params, grads):
-        p_norm = unitwise_norm(p)
-        g_norm = unitwise_norm(g)
+    if transposed is None:
+        transposed = [False] * len(params)
+    for p, g, tr in zip(params, grads, transposed):
+        p_norm = unitwise_norm(p, tr)
+        g_norm = unitwise_norm(g, tr)
         max_norm = torch.clamp(p_norm, min=eps) * clip_factor
         clipped = g * (max_norm / torch.clamp(g_norm, min=1e-6))
         out.append(torch.where(g_norm < max_norm, g, clipped))

@@ -4,9 +4,11 @@ sj_train.py:158-188).
 
 The step is the reference's: training-mode forward (batch-statistics BN,
 running statistics updated), loss, gradients, adaptive gradient clipping
-(vad and se families), then the optimizer (clipvalue + Keras Adam). As in
-the JAX package it is split at the gradient (``make_grad_update``), so
-the gradients can be inspected or, later, accumulated.
+(vad and se families), the se cascade's freeze mask, then the optimizer
+(clipvalue + Keras Adam). As in the JAX package it is split at the
+gradient (``make_grad_update``), so the gradients can be inspected or,
+later, accumulated. Metrics read the first output and target of a
+multi-output model, the se cascade's class head (state.py:60).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from torch import nn
 from challenge_tpu_torch.models.registry import ModelBundle
 from challenge_tpu_torch.train import metrics as metrics_lib
 from challenge_tpu_torch.train.losses import get_loss
-from challenge_tpu_torch.train.optim import adaptive_clip_grad, make_optimizer
+from challenge_tpu_torch.train.optim import (
+    adaptive_clip_grad, make_optimizer, transposed_weights)
 
 
 @dataclasses.dataclass
@@ -43,10 +46,15 @@ def init_state(bundle: ModelBundle, seed: int = 0) -> TrainState:
     return TrainState(module, optimizer, 0, swa, 0)
 
 
+def _first(x):
+    return x[0] if isinstance(x, (tuple, list)) else x
+
+
 def _metrics(metric_fns, loss, parts, y, out):
-    metrics = {'loss': loss.detach(), **parts}
+    metrics = {'loss': loss.detach(),
+               **{k: v.detach() for k, v in parts.items()}}
     for name, fn in metric_fns.items():
-        metrics[name] = fn(y, out.detach())
+        metrics[name] = fn(_first(y), _first(out).detach())
     return metrics
 
 
@@ -57,14 +65,20 @@ def make_grad_update(bundle: ModelBundle):
     * ``grad_fn(module, batch) -> (grads, metrics)``: training-mode
       forward (which moves the BN running statistics), loss and backward
       over one batch; ``grads`` follow ``module.parameters()``;
-    * ``update_fn(state, grads)``: AGC, then the optimizer, in place.
+    * ``update_fn(state, grads)``: AGC, the se freeze mask, then the
+      optimizer, in place.
 
     AGC applies to the families built on the reference's CustomModel
-    ('vad' and 'se'); the others only get the optimizer's clipvalue."""
+    ('vad' and 'se'); the others only get the optimizer's clipvalue. The
+    freeze mask multiplies the frozen half's gradients by 0 after AGC
+    (state.py:115-127), so Keras Adam's moments of those weights stay 0
+    and their update is exactly 0: the weights stay bit-identical."""
     config = bundle.config
     loss_fn = get_loss(config)
     metric_fns = metrics_lib.batch_metrics(config)
     use_agc = config.model_type in ('vad', 'se')
+    transposed = transposed_weights(bundle.module)
+    mask = bundle.trainable_mask() if config.model_type == 'se' else None
 
     def grad_fn(module: nn.Module, batch):
         x, y = batch
@@ -79,7 +93,9 @@ def make_grad_update(bundle: ModelBundle):
     def update_fn(state: TrainState, grads) -> None:
         params = list(state.module.parameters())
         if use_agc:
-            grads = adaptive_clip_grad(params, grads)
+            grads = adaptive_clip_grad(params, grads, transposed=transposed)
+        if mask is not None:
+            grads = [g * float(m) for g, m in zip(grads, mask)]
         for p, g in zip(params, grads):
             p.grad = g
         state.optimizer.step()

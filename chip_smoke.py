@@ -2,7 +2,8 @@
 """Smoke run of challenge_tpu_torch, the PyTorch + CUDA port, on one GPU.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of steps
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
+                                     # vad and se steps
     python3 chip_smoke.py --cudnn-ab # also the model step with cuDNN's
                                      # algorithm timing off and on, each in
                                      # a fresh process (off, on, on, off)
@@ -11,40 +12,65 @@ Phases, in order; any failure raises, and the script then exits non-zero
 without the result line:
 
 1. build every hand-written CUDA kernel from challenge_tpu_torch/csrc with
-   nvcc for sm_90a, and print the build seconds and ptxas' report;
+   nvcc for sm_90a, and print the build seconds and ptxas' report (the six
+   instances of csrc/synth.cu: magnitude and flat-complex output, each for
+   float32, bfloat16 and int8 banks);
 2. make random spec banks on the card at a realistic size (32 backgrounds
    of 1,875 frames, 512 voices of 40-130 frames, 128 noises of 20-100,
    each [257, T, 4] float32, from a seed), as float32, bfloat16 and int8
    banks from the same sources;
-3. hold the float32 synthesis kernel against its plain PyTorch version on
+3. hold the float32 magnitude kernel against its plain PyTorch version on
    the card: bit for bit (tolerance 0.0: both round every multiply and add
    of the same ordered sum and take the IEEE root), on draws of the main
    path (batch 12, 512 frames, 7 voice and 2 noise slots) and on
    adversarial draws (negative shifts, shifts of n_frame and beyond,
    inactive slots, long then short clips, no noise bank, a ragged row
    tile);
-3b. the same for the bfloat16 and int8 kernels, on banks built from the
-   same sources and on the adversarial cases with their banks rounded or
-   quantized: bit for bit (both upcast exactly, sum in float32 in order,
-   take the IEEE root and round it once to bfloat16);
+3b. the same for the bfloat16 and int8 magnitude kernels, on banks built
+   from the same sources and on the adversarial cases with their banks
+   rounded or quantized: bit for bit (both upcast exactly, sum in float32
+   in order, take the IEEE root and round it once to bfloat16);
+3c. the same for the three flat-complex kernels (the raw window, rounded
+   once to bfloat16 for the low-precision banks), bit for bit, on the main
+   path's draws, the adversarial cases and the se triple: the mix with
+   every voice weight zeroed, the voices over the one-item zero background
+   bank with a unit background scale, and that call with every voice slot
+   inactive;
 4. check the port on the card against the port on the CPU on a small
    input: synthesis bit for bit, log-mel within 1e-5 mean abs error,
    labels exact, and one training-mode forward and loss within 1e-5
    relative;
 4b. int8 synthesis on the card against the CPU on that input, bit for bit;
+4c. the se path on a small input (batch 2, 32 frames): synthesis, targets
+   and features bit for bit against the CPU in each bank dtype; then one
+   training-mode forward of the full-width pretrain cascade and
+   ``se_loss``, the card's float32 held to a float64 CPU copy within 1e-5
+   of each output's peak or 10 times the CPU float32's distance;
 5. the main path: ``get_model(Config(model_type='vad', v=8))`` at full width
    (base 48, td_dim 1024, 80 mels, 512 frames, batch 12),
    ``DevicePipeline`` and ``TrainLoop.fit`` for 5 training steps and 1
    validation step, with the kernel launch counts set to 0 just before and
    read just after: every batch must have gone through the kernel, and
    the losses must be finite;
+5b. the se slice's main path: ``get_model(Config(model_type='se', v=9,
+   pretrain=True))`` at full width (U-Net 64-512, head base 32 and td_dim
+   1024, input [12, 256, 512, 2]) on float32 banks, ``DevicePipeline`` and
+   ``TrainLoop.fit`` for 3 training steps and 1 validation step; then the
+   finetune model, given those weights, for the same. Each run's counts
+   are set to 0 just before and read just after: the float32 flat-complex
+   kernel must have run 3 times a batch and nothing else; the frozen half's
+   weights and BN statistics must be bit-identical before and after, every
+   tensor of the trained half must move, and the losses (class, speech,
+   noise, validation class ER) must be finite;
 6. times: each kernel and its plain version in turns (plain, kernel,
-   kernel, plain) with CUDA events, their bounds from this run's draws,
-   and the training step (20 steps of one epoch, read back once, as
-   ``fit`` does), the batch pipeline and the model step on their own;
-   then the training step in banks mode, as the CLI runs it, and the batch
-   pipeline alone, with float32 and int8 banks in turns (float32, int8,
-   int8, float32), so that only the bank dtype differs;
+   kernel, plain) with CUDA events, their bounds from this run's draws
+   (the flat-complex kernels on the se full mix), and the vad training
+   step (20 steps of one epoch, read back once, as ``fit`` does), the
+   batch pipeline and the model step on their own; the same for the se
+   pretrain step (10 steps); then the vad training step in banks mode, as
+   the CLI runs it, and the batch pipeline alone, with float32 and int8
+   banks in turns (float32, int8, int8, float32), so that only the bank
+   dtype differs;
 7. the CLI chain, in a temporary directory: the realistic spec sets as
    pickles under sj_train's default file names, and a dev set of 6
    two-channel 16 kHz WAVs of 60 s with ``sample_answer.json``; then
@@ -64,7 +90,18 @@ without the result line:
    agree within 1e-5 of their peak, the 0/1 grids must hold both events
    and silence, any frame whose grid differs must have a score within
    1e-5 of 0.5 (the count of such frames is printed), and the ERs against
-   the answers inside each clip's 8 s must be identical.
+   the answers inside each clip's 8 s must be identical;
+7b. the se CLI chain in that directory: ``cli.sj_train.main`` with
+   ``--model_type se --v 9 --pretrain True --bank_dtype int8`` for 3
+   epochs of 2 steps (16 validation steps each), which must launch the
+   int8 flat-complex kernel 3 times a batch (162 times) and write the trio
+   under the run name ending ``_weight``; that checkpoint copied to the
+   finetune run's name, which the finetune run loads (the reference's
+   bool flag reads any ``--pretrain`` value as True, so it is left out);
+   the finetune run with ``--bank_dtype bfloat16`` for the same epochs,
+   162 bfloat16 launches, its trio, and a U-Net bit-identical to the
+   pretrain checkpoint's; then ``cli.eval.main`` on the finetuned
+   ``_SWA.h5``, which must return 6 finite ERs, timed.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -78,6 +115,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -92,23 +130,30 @@ from challenge_tpu_torch import (
 from challenge_tpu_torch.cli import eval as eval_cli
 from challenge_tpu_torch.cli import sj_train
 from challenge_tpu_torch.data import mixture
+from challenge_tpu_torch.data.labels import (
+    label_downsample, speech_enhancement_preprocess)
 from challenge_tpu_torch.data.pipeline import FeatureFn
 from challenge_tpu_torch.data.specset import FLAT_DTYPES
 from challenge_tpu_torch.evaluate import events, infer
 from challenge_tpu_torch.models.layers import BatchNorm
+from challenge_tpu_torch.models.senet import SECascade
 from challenge_tpu_torch.models.vad import VADModel
 from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.ops.augment import batch_mask_keep
 from challenge_tpu_torch.ops.dsp import load_wav
 from challenge_tpu_torch.ops.synth import (
-    KERNELS, synthesize_magnitude, synthesize_magnitude_plain)
+    FLAT_KERNELS, KERNELS, synthesize_flat, synthesize_flat_plain,
+    synthesize_magnitude, synthesize_magnitude_plain)
 from challenge_tpu_torch.train.checkpoint import load_weights
-from challenge_tpu_torch.train.losses import binary_crossentropy
+from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TRAIN_STEPS, VAL_STEPS = 5, 1
+SE_STEPS, SE_VAL_STEPS = 3, 1      # each se phase of 5b
+SE_TIMED_STEPS = 10                # phase 6's se step
 CLI_EPOCHS, CLI_STEPS, CLI_VAL_STEPS = 3, 5, 16
+SE_CLI_STEPS = 2                   # phase 7b, per epoch
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
@@ -144,9 +189,14 @@ def sources(seed: int, n_bg: int, bg_len, n_voice: int, voice_len,
             rng.integers(0, 30, n_voice), specs(n_noise, noise_len, 0.3))
 
 
-def max_abs_diff(args) -> float:
-    out = synthesize_magnitude(*args)
-    ref = synthesize_magnitude_plain(*args)
+def max_abs_diff(args, flat: bool = False) -> float:
+    """Max abs difference of a synthesis kernel (the magnitude one, or the
+    flat-complex one) and its plain version on ``args``."""
+    if flat:
+        out, ref = synthesize_flat(*args), synthesize_flat_plain(*args)
+    else:
+        out = synthesize_magnitude(*args)
+        ref = synthesize_magnitude_plain(*args)
     torch.cuda.synchronize()
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f'kernel {out.shape} {out.dtype}, plain '
@@ -226,14 +276,15 @@ def lowp_case(args, dtype: torch.dtype):
             vlens, nlens, bs[bidx.long()])
 
 
-def synth_work(d, width: int, dtype: torch.dtype):
+def synth_work(d, width: int, dtype: torch.dtype, flat: bool = False):
     """(bytes, flops) that synthesizing the draws ``d`` from banks of
     ``dtype`` needs, counting what this run's data needs: each sample's
     background window, the rows of every active clip (w != 0) that land in
     the window, the slot tables (and int8's background scales) and the
-    magnitude written, each once; a multiply and an add per clip element,
-    int8's background scaling, and 3 operations and a root per
-    magnitude."""
+    output written, each once (the magnitude, F/2 columns, or with
+    ``flat`` the complex window, F columns); a multiply and an add per
+    clip element, int8's background scaling, and 3 operations and a root
+    per magnitude."""
     elem = torch.empty((), dtype=dtype).element_size()
     out_elem = torch.empty((), dtype=KERNELS[dtype][1]).element_size()
     n_frame, b = d.n_frame, d.bidx.shape[0]
@@ -247,9 +298,9 @@ def synth_work(d, width: int, dtype: torch.dtype):
         rows += int(((hi - lo).clamp(min=0) * (w != 0)).sum())
         table += 4 * shift.numel() * 4
     window = b * n_frame * width
-    out = b * n_frame * (width // 2)
+    out = b * n_frame * (width if flat else width // 2)
     nbytes = elem * (window + rows * width) + out_elem * out + table
-    flops = 2 * rows * width + 4 * out
+    flops = 2 * rows * width + (0 if flat else 4 * out)
     if dtype == torch.int8:
         nbytes += 4 * b
         flops += window
@@ -330,6 +381,112 @@ def small_reference_check(dev) -> dict:
                 loss_gpu=loss_g, loss_cpu=loss_c, int8_synth_max_abs=0.0)
 
 
+def se_reference_check(dev) -> dict:
+    """Phase 4c: the se path on the card against the CPU on a small input
+    (batch 2, 32 frames, the full-width cascade). Synthesis, targets and
+    features bit for bit in each bank dtype, on the same draws; then one
+    training-mode forward of the pretrain cascade and ``se_loss`` on the
+    float32 features, the card's float32 held to a float64 CPU copy within
+    ``SCORE_TOL`` of each output's peak or 10 times the CPU float32's
+    distance (phase 8's rule)."""
+    cpu = torch.device('cpu')
+    src = sources(4, 3, (40, 90), 6, (10, 40), 3, (8, 20))
+    feats = {}
+    for name in FLAT_DTYPES:
+        banks = {d: build_banks(*src, n_frame=32, flat_dtype=name, device=d)
+                 for d in (cpu, dev)}
+        draws = mixture.draw(torch.Generator().manual_seed(5), banks[cpu], 2,
+                             32)
+        gdraws = mixture.Draws(*(x.to(dev) if torch.is_tensor(x) else x
+                                 for x in draws))
+        out = {}
+        for d, dr in ((cpu, draws), (dev, gdraws)):
+            spec, targets = mixture.synthesize_se(banks[d], dr)
+            x, y = speech_enhancement_preprocess(spec, targets)
+            out[d] = [spec, *targets, x, *label_downsample(y, 32)]
+        for c, g in zip(out[cpu], out[dev]):
+            if c.dtype != g.dtype or not torch.equal(g.cpu(), c):
+                raise AssertionError(f'card vs CPU se synthesis ({name}): '
+                                     f'max diff '
+                                     f'{float((g.cpu() - c).abs().max())}')
+        if name == 'float32':
+            feats = out
+    m_c = SECascade(pretrain=True)
+    m_c.reset_parameters(torch.Generator().manual_seed(8))
+    models = {'cpu': m_c, 'card': copy.deepcopy(m_c).to(dev),
+              'f64': copy.deepcopy(m_c).double()}
+    res = {}
+    with torch.no_grad():
+        for key, m in models.items():
+            where = cpu if key != 'card' else dev
+            dt = torch.float64 if key == 'f64' else torch.float32
+            x = feats[where][4].to(dt)
+            y = tuple(t.to(dt) for t in feats[where][5:])
+            outs = m.train()(x)
+            res[key] = [o.double().cpu() for o in outs] + [
+                se_loss(y, outs)[0].double().cpu().reshape(1)]
+    gaps = {}
+    for key in ('cpu', 'card'):
+        gaps[key] = max(float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(res[key], res['f64']))
+    log(f'card vs CPU se, small input: synthesis, targets and features '
+        f'equal; forward and loss gap to float64 over the peak '
+        f'{json.dumps(gaps)}')
+    if gaps['card'] > max(SCORE_TOL, 10 * gaps['cpu']):
+        raise AssertionError('card se forward beyond the tolerance')
+    return dict(se_forward_gap_cpu=gaps['cpu'],
+                se_forward_gap_card=gaps['card'])
+
+
+def se_main_path(banks) -> dict:
+    """Phase 5b: se v9 at full width, pretrain then finetune from its
+    weights, through ``get_model``, ``DevicePipeline`` and
+    ``TrainLoop.fit``, each run's launch counts set to 0 just before it
+    and read just after. Returns the pretrain loop and its iterator for
+    phase 6, and the results."""
+    res = {'se_launches': {}, 'se_batches': 0}
+    weights, out = None, None
+    for pretrain, frozen in ((True, 'vad.'), (False, 'se.')):
+        cfg = Config(model_type='se', v=9, pretrain=pretrain)
+        loop = TrainLoop(get_model(cfg))
+        if weights is not None:
+            loop.set_weights(weights)
+        if pretrain:
+            res['se_params'] = sum(p.numel()
+                                   for p in loop.state.module.parameters())
+        before = loop.get_weights()
+        train_it = iter(DevicePipeline(banks, cfg))
+        val_it = iter(DevicePipeline(banks, cfg, training=False))
+        cuda.reset_launch_counts()
+        hist = loop.fit(train_it, epochs=1, steps_per_epoch=SE_STEPS,
+                        validation_iter=val_it, validation_steps=SE_VAL_STEPS)
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        phase = 'pretrain' if pretrain else 'finetune'
+        log(f'se {phase} launches: {json.dumps(launches)}')
+        n = SE_STEPS + SE_VAL_STEPS
+        if launches != {'synth_flat_f32': 3 * n}:
+            raise AssertionError(f'se {phase}: {launches} for {n} batches')
+        for k, v in launches.items():
+            res['se_launches'][k] = res['se_launches'].get(k, 0) + v
+        res['se_batches'] += n
+        logs = hist[0]
+        res[f'se_{phase}_logs'] = logs
+        names = ('loss', 'class_loss', 'speech_loss', 'noise_loss', 'val_loss',
+                 'val_class_loss', 'val_speech_loss', 'val_class_er')
+        if not all(math.isfinite(logs[k]) for k in names):
+            raise AssertionError(f'se {phase}: non-finite logs {logs}')
+        weights = loop.get_weights()
+        for k, v in weights.items():
+            if torch.equal(v, before[k]) != k.startswith(frozen):
+                raise AssertionError(f'se {phase}: {k} '
+                                     + ('moved' if k.startswith(frozen)
+                                        else 'did not move'))
+        if pretrain:
+            out = loop, train_it
+    return out + (res,)
+
+
 def model_step_ms(benchmark: bool, reps: int = 10) -> float:
     """vad v8's training step at full width on one fixed batch, with
     ``cudnn.benchmark`` as given, in this process. cuDNN keeps the
@@ -360,9 +517,10 @@ def cudnn_ab() -> dict:
     return res
 
 
-def profile_steps(loop, it, steps: int) -> None:
+def profile_steps(loop, it, steps: int, label: str = 'PROFILE') -> None:
     """torch.profiler over ``steps`` training steps: device time by kernel
-    and the card's busy share of the wall time."""
+    and the card's busy share of the wall time, printed on a ``label``
+    line."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -389,10 +547,10 @@ def profile_steps(loop, it, steps: int) -> None:
         f'{busy_us / 1e3:.3f} ms, optimizer range {opt_us / 1e3:.3f} ms')
     for us, key, count in rows[:25]:
         log(f'  {us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}')
-    log('PROFILE ' + json.dumps({
+    log(label + ' ' + json.dumps({
         'steps': steps, 'wall_ms': wall * 1e3, 'kernel_ms': busy_us / 1e3,
         'optimizer_range_ms': opt_us / 1e3,
-        'synth_ms': sum(r[0] for r in rows if 'synth_mag' in r[1]) / 1e3}))
+        'synth_ms': sum(r[0] for r in rows if 'synth_' in r[1]) / 1e3}))
 
 
 def write_dev_set(d: str, n_clips: int = 6, seconds: float = 60.0,
@@ -447,10 +605,11 @@ def write_spec_sets(d: str, train_src, test_src) -> None:
     np.save(os.path.join(d, cfg.test_labels), tlabels)
 
 
-def run_cli(argv, kernel: str, batches: int):
+def run_cli(argv, kernel: str, batches: int, per_batch: int = 1):
     """``cli.sj_train.main(argv)`` with the launch counts set to 0 just
-    before and read just after; ``kernel`` must have launched once per
-    batch. Returns (run name, counts, wall seconds)."""
+    before and read just after; ``kernel`` must have launched
+    ``per_batch`` times a batch. Returns (run name, counts, wall
+    seconds)."""
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     run = sj_train.main(argv)
@@ -458,14 +617,62 @@ def run_cli(argv, kernel: str, batches: int):
     secs = time.perf_counter() - t0
     counts = dict(cuda.LAUNCHES)
     log(f'cli {kernel}: {json.dumps(counts)} in {secs:.3f} s')
-    if counts.get(kernel, 0) != batches:
+    if counts.get(kernel, 0) != per_batch * batches:
         raise AssertionError(f'{kernel} ran {counts.get(kernel, 0)} times '
                              f'for {batches} batches')
     return run, counts, secs
 
 
+def check_trio(run: str) -> None:
+    for suffix in ('.h5', '_SWA.h5', '_sample.h5'):
+        if not os.path.exists(run + suffix):
+            raise AssertionError(f'missing checkpoint {run}{suffix}')
+
+
+def se_cli_chain(d: str) -> dict:
+    """Phase 7b, in the CLI chain's directory ``d``: se v9 pretrain on
+    int8 banks, finetune on bfloat16 banks from its checkpoint, then the
+    eval CLI on the finetuned ``_SWA.h5``."""
+    res = {}
+    base = ['--model_type', 'se', '--v', '9', '--n_chan', '2',
+            '--datapath', d, '--epochs', str(CLI_EPOCHS),
+            '--steps_per_epoch', str(SE_CLI_STEPS)]
+    batches = CLI_EPOCHS * (SE_CLI_STEPS + CLI_VAL_STEPS)
+    pre, res['se_int8_launches'], res['se_int8_cli_s'] = run_cli(
+        base + ['--bank_dtype', 'int8', '--pretrain', 'True'],
+        'synth_flat_int8', batches, per_batch=3)
+    check_trio(pre)
+    # the finetune run loads {run}.h5 under its own name, which has no
+    # '_weight' (sj_train.py:467-469); the reference's bool flag reads any
+    # value of --pretrain as True, so finetuning leaves it out
+    run = pre[:-len('_weight')]
+    shutil.copy(pre + '.h5', run + '.h5')
+    got, res['se_bf16_launches'], res['se_bf16_cli_s'] = run_cli(
+        base + ['--bank_dtype', 'bfloat16'], 'synth_flat_bf16', batches,
+        per_batch=3)
+    if got != run:
+        raise AssertionError(f'finetune run {got}, expected {run}')
+    check_trio(run)
+    pre_w, ft_w = load_weights(pre + '.h5'), load_weights(run + '.h5')
+    moved = {k for k in pre_w if not torch.equal(pre_w[k], ft_w[k])}
+    if not moved or any(k.startswith('se.') for k in moved):
+        raise AssertionError('finetune must train the head and leave the '
+                             'U-Net bit-identical')
+    res['se_cli_batches'] = batches
+    t0 = time.perf_counter()
+    ers = eval_cli.main(['--name', run + '_SWA', '--p'])
+    torch.cuda.synchronize()
+    res['se_eval_s'] = time.perf_counter() - t0
+    if len(ers) != 6 or not all(map(math.isfinite, ers)):
+        raise AssertionError(f'se eval CLI ERs: {ers}')
+    res['se_ers'] = ers
+    log(f'se eval CLI, 6 x 60 s: ERs {ers} in {res["se_eval_s"]:.3f} s')
+    return res
+
+
 def cli_chain(dev, train_src, test_src) -> dict:
-    """Phases 7 and 8, in a temporary directory that is removed after."""
+    """Phases 7, 8 and 7b, in a temporary directory that is removed
+    after."""
     res = {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as d:
@@ -481,9 +688,7 @@ def cli_chain(dev, train_src, test_src) -> dict:
                         '--steps_per_epoch', str(CLI_STEPS)],
                 'synth_mag_int8', batches)
             res['int8_launches'], res['int8_batches'] = counts, batches
-            for suffix in ('.h5', '_SWA.h5', '_sample.h5'):
-                if not os.path.exists(run + suffix):
-                    raise AssertionError(f'missing checkpoint {run}{suffix}')
+            check_trio(run)
             with open(run + '.csv') as f:
                 rows = f.read().strip().splitlines()
             if len(rows) != 1 + CLI_EPOCHS:
@@ -504,6 +709,7 @@ def cli_chain(dev, train_src, test_src) -> dict:
             res['bf16_launches'] = counts
             res['bf16_batches'] = CLI_STEPS + CLI_VAL_STEPS
             res.update(card_vs_cpu_eval(dev, run, answers))
+            res.update(se_cli_chain(d))
         finally:
             os.chdir(cwd)
     return res
@@ -656,6 +862,8 @@ def card_vs_cpu_eval(dev, run: str, answers: dict) -> dict:
         raise AssertionError(f'positive grid share per clip: {positive}')
     if ers['card'] != ers['cpu']:
         raise AssertionError(f'card vs CPU ERs: {ers}')
+    for path in paths:              # the dev set is scored again in 7b
+        os.remove(path)
     return dict(cut_ers=ers['card'], cut_max_rel_gap=gap,
                 cut_positive_share=positive, cut_nearest_to_half=nearest,
                 borderline_frames=borderline)
@@ -707,13 +915,33 @@ def main(argv) -> int:
             e[case] = max_abs_diff(args if dt == torch.float32
                                    else lowp_case(args, dt))
         errs[KERNELS[dt][0]] = e
+    # 3c. the flat-complex kernels: the same draws and cases, and the se
+    # triple's other two calls, and its voices-only call with every voice
+    # slot inactive (nothing but the zero background)
+    for name, dt in FLAT_DTYPES.items():
+        e = {'main_path': max(max_abs_diff(mixture.synth_args(banks[name], d),
+                                           flat=True)
+                              for d in main_draws[:4])}
+        for case, args in cases.items():
+            e[case] = max_abs_diff(args if dt == torch.float32
+                                   else lowp_case(args, dt), flat=True)
+        _, only_noise, only_voice = mixture.se_synth_args(banks[name],
+                                                          main_draws[0])
+        no_voice = (only_voice[:7] + (torch.zeros_like(only_voice[7]),)
+                    + only_voice[8:])
+        for case, args in (('se_only_noise', only_noise),
+                           ('se_only_voice', only_voice),
+                           ('se_no_voice', no_voice)):
+            e[case] = max_abs_diff(args, flat=True)
+        errs[FLAT_KERNELS[dt]] = e
     log('kernel vs plain, max abs diff: ' + json.dumps(errs))
     if any(v != 0.0 for e in errs.values() for v in e.values()):
         raise AssertionError('a synthesis kernel disagrees with its plain '
                              'version')
 
-    # 4, 4b. the card against the CPU on a small input
+    # 4, 4b, 4c. the card against the CPU on a small input
     log('card vs CPU, small input: ' + json.dumps(small_reference_check(dev)))
+    se_ref = se_reference_check(dev)
 
     # 5. the main path
     f32_kernel = KERNELS[torch.float32][0]
@@ -734,29 +962,38 @@ def main(argv) -> int:
     if not all(math.isfinite(logs[k]) for k in ('loss', 'val_loss')):
         raise AssertionError(f'non-finite losses: {logs}')
 
-    # 6. times
+    # 5b. the se slice's main path
+    se_loop, se_train_it, se = se_main_path(banks['float32'])
+
+    # 6. times: each kernel on the main path's draws (the flat-complex
+    # ones on the se full mix, the first of its three calls)
     timing = {}
-    for name, dt in FLAT_DTYPES.items():
-        args = [mixture.synth_args(banks[name], d) for d in main_draws]
-        kernel_ms, plain_ms = [], []
-        for which in ('plain', 'kernel', 'kernel', 'plain'):
-            if which == 'kernel':
-                kernel_ms.append(gpu_ms(synthesize_magnitude, args, 64))
-            else:
-                plain_ms.append(gpu_ms(synthesize_magnitude_plain, args, 16))
-        work = [synth_work(d, banks[name].backgrounds.flat.shape[-1], dt)
-                for d in main_draws]
-        nbytes = sum(w[0] for w in work) / len(work)
-        flops = sum(w[1] for w in work) / len(work)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        timing[KERNELS[dt][0]] = dict(
-            ms=sum(kernel_ms) / len(kernel_ms),
-            plain_ms=sum(plain_ms) / len(plain_ms), bound_ms=bound_ms,
-            bound_by=('bytes' if nbytes / HBM_BYTES_PER_S
-                      >= flops / FP32_FLOPS else 'operations'))
-        log(f'synth {name}: kernel {kernel_ms} ms, plain {plain_ms} ms, '
-            f'{nbytes / 1e6:.3f} MB and {flops / 1e9:.4f} GFLOP per call, '
-            f'bound {bound_ms * 1e3:.3f} us')
+    for flat, fn, plain, names in (
+            (False, synthesize_magnitude, synthesize_magnitude_plain,
+             {dt: KERNELS[dt][0] for dt in KERNELS}),
+            (True, synthesize_flat, synthesize_flat_plain, FLAT_KERNELS)):
+        for name, dt in FLAT_DTYPES.items():
+            args = [mixture.synth_args(banks[name], d) for d in main_draws]
+            kernel_ms, plain_ms = [], []
+            for which in ('plain', 'kernel', 'kernel', 'plain'):
+                if which == 'kernel':
+                    kernel_ms.append(gpu_ms(fn, args, 64))
+                else:
+                    plain_ms.append(gpu_ms(plain, args, 16))
+            work = [synth_work(d, banks[name].backgrounds.flat.shape[-1], dt,
+                               flat) for d in main_draws]
+            nbytes = sum(w[0] for w in work) / len(work)
+            flops = sum(w[1] for w in work) / len(work)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           flops / FP32_FLOPS) * 1e3
+            timing[names[dt]] = dict(
+                ms=sum(kernel_ms) / len(kernel_ms),
+                plain_ms=sum(plain_ms) / len(plain_ms), bound_ms=bound_ms,
+                bound_by=('bytes' if nbytes / HBM_BYTES_PER_S
+                          >= flops / FP32_FLOPS else 'operations'))
+            log(f'{names[dt]}: kernel {kernel_ms} ms, plain {plain_ms} ms, '
+                f'{nbytes / 1e6:.3f} MB and {flops / 1e9:.4f} GFLOP per '
+                f'call, bound {bound_ms * 1e3:.3f} us')
 
     batch = next(train_it)
     step_ms = wall_ms(lambda: loop.run_epoch(train_it, 20, training=True),
@@ -769,6 +1006,18 @@ def main(argv) -> int:
         log('CUDNN model_step_ms, fresh process each: '
             + json.dumps(cudnn_ab()))
     del loop, train_it, val_it
+
+    # the se v9 step (pretrain, float32 banks), timed as vad's
+    se_batch = next(se_train_it)
+    se['se_step_ms'] = wall_ms(lambda: se_loop.run_epoch(
+        se_train_it, SE_TIMED_STEPS, training=True), 1) / SE_TIMED_STEPS
+    se['se_pipeline_ms'] = wall_ms(lambda: next(se_train_it), 10)
+    se['se_model_step_ms'] = wall_ms(
+        lambda: se_loop.train_step(se_loop.state, se_batch), 5)
+    se['se_peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    if '--profile' in argv:
+        profile_steps(se_loop, se_train_it, 5, 'SE_PROFILE')
+    del se_loop, se_train_it, se_batch
 
     # the training step in banks mode, as the CLI runs it, and the batch
     # pipeline alone, with float32 and int8 banks in turns
@@ -802,12 +1051,20 @@ def main(argv) -> int:
         'batch': cfg.batch_size,
         'n_frame': cfg.n_frame, 'train_loss': logs['loss'],
         'val_loss': logs['val_loss'], 'card': smi}))
+    log('SE ' + json.dumps({**{k: v for k, v in se.items()
+                                if k != 'se_launches'}, **se_ref,
+                             'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
                              if not k.endswith('launches')}))
     log(smi)
     runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
             'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
-            'synth_mag_int8': (cli['int8_launches'], cli['int8_batches'])}
+            'synth_mag_int8': (cli['int8_launches'], cli['int8_batches']),
+            'synth_flat_f32': (se['se_launches'], se['se_batches']),
+            'synth_flat_bf16': (cli['se_bf16_launches'],
+                                cli['se_cli_batches']),
+            'synth_flat_int8': (cli['se_int8_launches'],
+                                cli['se_cli_batches'])}
     log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': 'challenge_tpu_torch/csrc/synth.cu',

@@ -39,10 +39,11 @@ def strip_flat(flat, chan: int, freq: int):
     return planes.reshape(flat.shape[:-1] + (chan * freq,))
 
 
-def numpy_ordered_sum(nf, a, fma: bool):
+def numpy_ordered_sum(nf, a, fma: bool, magnitude: bool = True):
     """The kernel's function in numpy, slot by slot in order. fma=True
     rounds ``acc + w * clip`` and ``re * re + im * im`` once, as an FMA
-    does (the float64 product of two float32 values is exact)."""
+    does (the float64 product of two float32 values is exact).
+    magnitude=False returns the float32 window itself."""
     t = np.arange(nf)
     acc = a['bgbank'][a['bidx'][:, None], a['boff'][:, None] + t[None, :]]
     for p in ('v', 'n'):
@@ -59,11 +60,72 @@ def numpy_ordered_sum(nf, a, fma: bool):
             new = ((wk.astype(np.float64) * clip + acc).astype(np.float32)
                    if fma else acc + wk * clip)
             acc = np.where(on[..., None], new, acc)
+    if not magnitude:
+        return acc
     h = acc.shape[-1] // 2
     re, im = acc[..., :h], acc[..., h:]
     sq = ((re.astype(np.float64) * re + im * im).astype(np.float32)
           if fma else re * re + im * im)
     return np.sqrt(sq)
+
+
+def synth_case(name):
+    """(n_frame, arrays) for one adversarial draw; flat width 128 (the JAX
+    kernel's lane rule), rows multiples of 8 (its sublane rule)."""
+    if name == 'random':
+        # negative shifts, shifts up to n_frame - 1, voices and noises
+        rng = np.random.default_rng(1)
+        b, nf, f = 4, 64, 128
+        a = dict(
+            bgbank=rng.standard_normal((3, 96, f)),
+            bidx=rng.integers(0, 3, b), boff=rng.integers(0, 96 - nf, b),
+            vbank=rng.standard_normal((5, 24, f)),
+            vidx=rng.integers(0, 5, (b, 3)),
+            vshift=rng.integers(-20, nf, (b, 3)),
+            vw=rng.uniform(0.1, 1, (b, 3)),
+            nbank=rng.standard_normal((4, 16, f)),
+            nidx=rng.integers(0, 4, (b, 2)),
+            nshift=rng.integers(-12, nf, (b, 2)),
+            nw=rng.uniform(0.1, 1, (b, 2)))
+    elif name == 'long_then_short':
+        # a long clip then short ones through the same slot positions;
+        # rows past each clip's length are zero (the bank contract)
+        rng = np.random.default_rng(4)
+        b, nf, f = 2, 64, 128
+        lens = np.array([96, 20, 50, 96])
+        vbank = rng.standard_normal((4, 96, f))
+        for i, n in enumerate(lens):
+            vbank[i, n:] = 0.0
+        vidx = np.array([[0, 1, 2], [3, 2, 1]])
+        a = dict(bgbank=rng.standard_normal((2, 128, f)),
+                 bidx=np.array([0, 1]), boff=np.array([3, 40]),
+                 vbank=vbank, vidx=vidx,
+                 vshift=rng.integers(-10, nf, (b, 3)),
+                 vw=rng.uniform(0.5, 1, (b, 3)), vlens=lens[vidx])
+    elif name == 'edges':
+        # w == 0 slots, a shift of exactly n_frame (lands nowhere), a shift
+        # that leaves one row inside, a clip fully before the window
+        rng = np.random.default_rng(6)
+        b, nf, f = 3, 32, 128
+        vw = rng.uniform(0.2, 1, (b, 4))
+        vw[0, 1] = vw[2, 0] = vw[1, 3] = 0.0
+        nw = rng.uniform(0.2, 1, (b, 2))
+        nw[:, 1] = 0.0
+        a = dict(bgbank=rng.standard_normal((2, 64, f)),
+                 bidx=np.array([0, 1, 1]), boff=np.array([0, 8, 5]),
+                 vbank=rng.standard_normal((3, 16, f)),
+                 vidx=rng.integers(0, 3, (b, 4)),
+                 vshift=np.array([[nf, -15, 0, 31], [-16, nf - 1, 7, 3],
+                                  [2, 2, 2, -40]]),
+                 vw=vw,
+                 nbank=rng.standard_normal((2, 8, f)),
+                 nidx=rng.integers(0, 2, (b, 2)),
+                 nshift=np.array([[-7, 0], [nf - 8, 4], [nf, 1]]), nw=nw)
+    else:
+        raise KeyError(name)
+    ints = {'bidx', 'boff', 'vidx', 'vshift', 'nidx', 'nshift', 'vlens'}
+    return nf, {k: np.asarray(v, np.int32 if k in ints else np.float32)
+                for k, v in a.items()}
 
 
 def jax_draws(banks, key, batch_size: int = BATCH, n_frame: int = N_FRAME,
