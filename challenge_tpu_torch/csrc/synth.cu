@@ -7,7 +7,9 @@
 // synth_mag_f32) and with bfloat16 or int8 banks (mode B3, synth_mag_bf16
 // and synth_mag_int8), and the flat-complex output (mode B2, the default
 // epilogue, pallas_synth.py:279-281: synth_flat_f32, synth_flat_bf16 and
-// synth_flat_int8), which the se v9 targets call three times a batch.
+// synth_flat_int8), which the se v9 targets call three times a batch. The
+// fourth mode, the fused mel epilogue (B4), is synth_mel.cu; the slot table
+// and the ordered sum below are shared with it (synth_common.cuh).
 //
 // What it computes, per sample b and window row t in [0, n_frame):
 //   acc  = float(bg[bidx[b], boff[b] + t, :])               (flat row, F cols)
@@ -64,123 +66,57 @@
 // bf16 and int8 kernels take about as long as the f32 one, about 5 and 8
 // times their bounds against 3 (PERF.md). Wider loads are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "synth_common.cuh"
 
 namespace {
 
+using synth::kMaxSlots;
+using synth::kRows;
+
 constexpr int kThreads = 256;
-constexpr int kRows = 8;        // window rows per block
-constexpr int kMaxSlots = 32;   // voice + noise slots per sample
-
-__device__ __forceinline__ float upcast(float x) { return x; }
-__device__ __forceinline__ float upcast(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float upcast(int8_t x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <typename T, typename Out, bool kScaled, bool kMag>
 __global__ void __launch_bounds__(kThreads) synth_kernel(
-    const T* __restrict__ bg, const int* __restrict__ bidx,
-    const int* __restrict__ boff, long long bg_stride,
-    const T* __restrict__ vbank, const int* __restrict__ vidx,
-    const int* __restrict__ vshift, const float* __restrict__ vw,
-    const int* __restrict__ vlen, int n_v, int v_rows, long long v_stride,
-    const T* __restrict__ nbank, const int* __restrict__ nidx,
-    const int* __restrict__ nshift, const float* __restrict__ nw,
-    const int* __restrict__ nlen, int n_x, int n_rows, long long n_stride,
-    const float* __restrict__ bgscale, Out* __restrict__ out, int n_frame,
+    const synth::Sources<T> src, Out* __restrict__ out, int n_frame,
     int width) {
-  __shared__ const T* s_clip[kMaxSlots];
-  __shared__ int s_shift[kMaxSlots];
-  __shared__ int s_len[kMaxSlots];
-  __shared__ float s_w[kMaxSlots];
-  __shared__ int s_n;
-
+  __shared__ synth::Slots<T> s;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kRows;
   const int t1 = min(t0 + kRows, n_frame);
   const int half = width / 2;
-
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int k = 0; k < n_v + n_x; ++k) {
-      const bool voice = k < n_v;
-      const int i = voice ? b * n_v + k : b * n_x + (k - n_v);
-      const float w = voice ? vw[i] : nw[i];
-      if (w == 0.0f) continue;                          // inactive slot
-      const int shift = voice ? vshift[i] : nshift[i];
-      const int len = min(voice ? vlen[i] : nlen[i], voice ? v_rows : n_rows);
-      if (shift + len <= t0 || shift >= t1) continue;   // misses this tile
-      const long long item = voice ? vidx[i] : nidx[i];
-      s_clip[n] = voice ? vbank + item * v_stride : nbank + item * n_stride;
-      s_shift[n] = shift;
-      s_len[n] = len;
-      s_w[n] = w;
-      ++n;
-    }
-    s_n = n;
-  }
+  if (threadIdx.x == 0) synth::gather_slots(src, b, t0, t1, s);
   __syncthreads();
 
-  const int n_slots = s_n;
-  const T* win = bg + (long long)bidx[b] * bg_stride
-                    + (long long)boff[b] * width;
+  const T* win = src.bg + (long long)src.bidx[b] * src.bg_stride
+                        + (long long)src.boff[b] * width;
+  const float bgscale = kScaled ? src.bgscale[b] : 1.0f;
   Out* o = out + (long long)b * n_frame * (kMag ? half : width);
   for (int m = threadIdx.x; m < half; m += kThreads) {
     for (int t = t0; t < t1; ++t) {
-      float re = upcast(win[(long long)t * width + m]);
-      float im = upcast(win[(long long)t * width + half + m]);
-      if (kScaled) {                                    // int8 banks
-        re = __fmul_rn(re, bgscale[b]);
-        im = __fmul_rn(im, bgscale[b]);
-      }
-      for (int k = 0; k < n_slots; ++k) {
-        const int j = t - s_shift[k];
-        if (j >= 0 && j < s_len[k]) {
-          const T* row = s_clip[k] + (long long)j * width;
-          re = __fadd_rn(re, __fmul_rn(s_w[k], upcast(row[m])));
-          im = __fadd_rn(im, __fmul_rn(s_w[k], upcast(row[half + m])));
-        }
-      }
+      float re, im;
+      synth::ordered_pair<T, kScaled>(s, win, bgscale, t, m, half, width,
+                                      re, im);
       if (kMag) {
-        store(o + (long long)t * half + m,
-              sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))));
+        synth::store(o + (long long)t * half + m, synth::magnitude(re, im));
       } else {
-        store(o + (long long)t * width + m, re);
-        store(o + (long long)t * width + half + m, im);
+        synth::store(o + (long long)t * width + m, re);
+        synth::store(o + (long long)t * width + half + m, im);
       }
     }
   }
 }
 
 template <typename T, typename Out, bool kScaled, bool kMag>
-int launch(const T* bg, const int* bidx, const int* boff, long long bg_stride,
-           const T* vbank, const int* vidx, const int* vshift, const float* vw,
-           const int* vlen, int n_v, int v_rows, long long v_stride,
-           const T* nbank, const int* nidx, const int* nshift, const float* nw,
-           const int* nlen, int n_x, int n_rows, long long n_stride,
-           const float* bgscale, Out* out, int batch, int n_frame, int width,
-           void* stream) {
-  if (n_v + n_x > kMaxSlots || batch > 65535 || width % 2 != 0) {
+int launch(const synth::Sources<T>& src, Out* out, int batch, int n_frame,
+           int width, void* stream) {
+  if (src.n_v + src.n_x > kMaxSlots || batch > 65535 || width % 2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0 || n_frame == 0) return 0;
   const dim3 grid((n_frame + kRows - 1) / kRows, batch);
   synth_kernel<T, Out, kScaled, kMag><<<grid, kThreads, 0,
                                         static_cast<cudaStream_t>(stream)>>>(
-      bg, bidx, boff, bg_stride, vbank, vidx, vshift, vw, vlen, n_v, v_rows,
-      v_stride, nbank, nidx, nshift, nw, nlen, n_x, n_rows, n_stride, bgscale,
-      out, n_frame, width);
+      src, out, n_frame, width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -205,10 +141,12 @@ int launch(const T* bg, const int* bidx, const int* boff, long long bg_stride,
     if ((bgscale != nullptr) != SCALED) {                                     \
       return static_cast<int>(cudaErrorInvalidValue);                         \
     }                                                                         \
-    return launch<T, OUT, SCALED, MAG>(                                       \
-        bg, bidx, boff, bg_stride, vbank, vidx, vshift, vw, vlen, n_v,        \
-        v_rows, v_stride, nbank, nidx, nshift, nw, nlen, n_x, n_rows,         \
-        n_stride, bgscale, out, batch, n_frame, width, stream);               \
+    const synth::Sources<T> src{bg, bidx, boff, bg_stride, vbank, vidx,      \
+                                vshift, vw, vlen, n_v, v_rows, v_stride,      \
+                                nbank, nidx, nshift, nw, nlen, n_x, n_rows,   \
+                                n_stride, bgscale};                           \
+    return launch<T, OUT, SCALED, MAG>(src, out, batch, n_frame, width,       \
+                                       stream);                               \
   }
 
 SYNTH_ENTRY(synth_mag_f32, float, float, false, true)

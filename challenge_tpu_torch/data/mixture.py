@@ -11,8 +11,12 @@ A batch is made in two steps so that tests can feed JAX's draws to the port:
 * :func:`synthesize` turns draws into ``(magnitude, frame labels)``: the
   magnitude through the CUDA synthesis kernel (``ops/synth.py``), the
   labels by placing each accepted voice's energy mask at its shift;
-  :func:`synthesize_se` turns them into the complex spectrogram and the
-  se family's targets, through the flat-complex kernel.
+  :func:`synthesize_complex` gives the complex window instead, through the
+  flat-complex kernel, for the channel maps of n_chan != 2;
+  :func:`synthesize_mel` gives the masked mel and its min and max, through
+  the fused mel kernel; :func:`synthesize_se` gives the complex
+  spectrogram and the se family's targets, through the flat-complex
+  kernel.
 
 The upper bounds of the voice and noise counts are exclusive, as in the
 reference (tf.random.uniform's exclusive maxval, pipeline.py:43,87): a
@@ -27,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from challenge_tpu_torch.data.specset import SpecBank
-from challenge_tpu_torch.ops.synth import synthesize_flat, synthesize_magnitude
+from challenge_tpu_torch.ops import synth
 
 
 class Banks(NamedTuple):
@@ -222,7 +226,32 @@ def synthesize(banks: Banks, draws: Draws):
     A voice slot carries labels iff its drawn weight is nonzero: weights
     are ``accept * 10**-u`` with ``10**-u > 0``."""
     d = draws
-    return synthesize_magnitude(*synth_args(banks, d)), _labels(banks, d)
+    return (synth.synthesize_magnitude(*synth_args(banks, d)),
+            _labels(banks, d))
+
+
+def synthesize_complex(banks: Banks, draws: Draws):
+    """Draws -> (the complex window [B, n_frame, chan * freq] in the flat
+    layout, frame labels [B, V, n_frame, C]) (counterpart: the
+    ``layout='tfc'`` branch of ``sample_batch`` without ``magnitude``,
+    mixture.py:489-491, 545), through the flat-complex kernel: float32 for
+    float32 banks, bfloat16 for bfloat16 and int8 banks."""
+    return synth.synthesize_flat(*synth_args(banks, draws)), \
+        _labels(banks, draws)
+
+
+def synthesize_mel(banks: Banks, draws: Draws, melm, tmask, fmask,
+                   band=None):
+    """Draws -> ((mel [B, n_mels, n_frame, chan / 2], mm [B, 2]), frame
+    labels [B, V, n_frame, C]) (counterpart: the ``mel_pack`` branch of
+    ``sample_batch``, mixture.py:442-444, 484-487), through the fused mel
+    kernel: the masked mel of the float32 magnitude and its per-sample min
+    and max, float32 for every bank dtype. melm [freq, n_mels]; tmask
+    [B, n_frame] and fmask [B, chan / 2 * freq] {0,1} masks; band the
+    ``synth.mel_band`` of melm, or None to build it."""
+    return (synth.synthesize_mel(*synth_args(banks, draws), melm=melm,
+                                 tmask=tmask, fmask=fmask, band=band),
+            _labels(banks, draws))
 
 
 def _labels(banks: Banks, d: Draws):
@@ -268,7 +297,7 @@ def synthesize_se(banks: Banks, draws: Draws):
         return flat.reshape(flat.shape[0], draws.n_frame, chan, -1).permute(
             0, 3, 1, 2)
 
-    full, only_noise, only_voice = (synthesize_flat(*a) for a in
+    full, only_noise, only_voice = (synth.synthesize_flat(*a) for a in
                                     se_synth_args(banks, draws))
     return unflat(full), (_labels(banks, draws), unflat(only_voice),
                           unflat(only_noise))

@@ -1,14 +1,14 @@
 """Sliding-window inference and the challenge evaluation loop (counterpart:
 ``challenge_tpu/evaluate/infer.py``; reference: metrics.py:31-90).
 
-Per clip: WAV -> complex spectrogram (``ops/dsp.py``) -> eval STFT filter
--> magnitude -> mel -> minmax -> log (for the se family instead: the DC row
-dropped and the real half kept) -> windows of ``n_frame`` frames every
-``overlap_hop`` -> model forward over all windows at once (the se
-cascade's class head) -> label-rate
-upsampling -> overlap-add averaged by the window count -> 31-frame average
-pool -> 124-frame max pool -> ``>= 0.5``; then events and the per-clip ER
-on the host (``events.py``). The JAX package's one-program dev-set path
+Per clip: WAV -> complex spectrogram (``ops/dsp.py``) -> channel map ->
+eval STFT filter -> magnitude -> mel -> minmax -> log (for the se family
+instead: the DC row dropped and the real half kept) -> windows of
+``n_frame`` frames every ``overlap_hop`` -> model forward over all windows
+at once (the se cascade's class head) -> label-rate upsampling ->
+overlap-add averaged by the window count -> 31-frame average pool ->
+124-frame max pool -> ``>= 0.5``; then events and the per-clip ER on the
+host (``events.py``). The JAX package's one-program dev-set path
 with ``n_valid`` masks is an XLA device and is not ported; JAX's own tests
 pin its grids equal to the per-clip path ported here.
 
@@ -19,9 +19,14 @@ Reference quirks kept, as in JAX (infer.py:10-17):
   row;
 * the average pool divides by the count of in-bounds frames (Keras
   'same'), and the max pool pads 61 frames before and 62 after with -inf,
-  as TF's 'SAME' does for an even window.
-The vad and se v9 families with ``n_chan == 2`` are ported; the other
-channel counts wait for ROADMAP A10 and the eff family for A12.
+  as TF's 'SAME' does for an even window;
+* the channel maps: n_chan 1 is the identity (``mono_chan`` without
+  labels) and the model reads channel 0; n_chan 3 is ``stereo_mono``;
+  n_chan > 3 merges with a fresh factor per clip.
+The merge factor of clip i (in sorted path order) comes from a CPU
+``torch.Generator`` seeded with i: deterministic across runs and devices,
+but not JAX's stream, which folds i into ``PRNGKey(0)`` (ROADMAP C). The
+vad and se v9 families are ported; the eff family waits for ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from challenge_tpu_torch.data.labels import speech_enhancement_preprocess
+from challenge_tpu_torch.data.labels import (
+    speech_enhancement_preprocess, stereo_mono)
 from challenge_tpu_torch.data.pipeline import LABEL_DOWNSAMPLE_MODELS
 from challenge_tpu_torch.evaluate.events import (
     get_er, get_start_end_frame, output_to_metric)
 from challenge_tpu_torch.models.layers import avg_pool_same
+from challenge_tpu_torch.ops.augment import merge_factors, random_merge_aug
 from challenge_tpu_torch.ops.dsp import HOP, SR, load_wav
 from challenge_tpu_torch.ops.mel import magnitude_to_mel, mel_filterbank
 from challenge_tpu_torch.ops.norms import EPSILON, minmax
@@ -78,22 +85,31 @@ def max_pool_1d_same(x, pool: int):
     return F.max_pool1d(xp, pool, 1)[0].T
 
 
-def _check_ported(config) -> None:
-    if config.model_type == 'eff':
-        raise NotImplementedError(
-            'evaluating the eff family is not ported yet (ROADMAP A12)')
-    if config.n_chan != 2:
-        raise NotImplementedError(
-            f'n_chan={config.n_chan} is not ported yet (ROADMAP A10)')
+def channel_map(config, spec, clip_index: int = 0):
+    """The eval channel map of ``config.n_chan`` on a complex spectrogram
+    [freq, T, 4] (infer.py:139-145): the identity for n_chan 1 and 2,
+    ``stereo_mono`` for 3, and for more a random merge whose factors come
+    from a CPU generator seeded with ``clip_index``."""
+    if config.n_chan == 3:
+        return stereo_mono(spec)
+    if config.n_chan > 3:
+        gen = torch.Generator().manual_seed(clip_index)
+        factor = merge_factors(gen, 1, config.n_chan)[0].to(spec.device)
+        return random_merge_aug(spec, factor)
+    return spec
 
 
 @torch.no_grad()
-def spec_to_scores(config, module, spec, overlap_hop: int = 512):
+def spec_to_scores(config, module, spec, overlap_hop: int = 512,
+                   clip_index: int = 0):
     """Complex spectrogram [freq, T, 4] -> smoothed class scores [T', C]
     (T' = min(T, frames the windows cover)), before the 0.5 threshold
     (counterpart: the body of ``_make_spec_to_grid``, infer.py:138-199,
-    with ``n_valid=None``)."""
-    _check_ported(config)
+    with ``n_valid=None``). ``clip_index`` seeds the n_chan > 3 merge."""
+    if config.model_type == 'eff':
+        raise NotImplementedError(
+            'evaluating the eff family is not ported yet (ROADMAP A12)')
+    spec = channel_map(config, spec, clip_index)
     n_frame = config.n_frame
     se = config.model_type == 'se'
     if se:
@@ -128,11 +144,12 @@ def spec_to_scores(config, module, spec, overlap_hop: int = 512):
     return max_pool_1d_same(preds, SMOOTH * 4)
 
 
-def clip_scores(config, module, path: str, overlap_hop: int = 512):
+def clip_scores(config, module, path: str, overlap_hop: int = 512,
+                clip_index: int = 0):
     """The smoothed scores of one WAV file, on the module's device."""
     device = next(module.parameters()).device
     return spec_to_scores(config, module, load_wav(path, device=device),
-                          overlap_hop)
+                          overlap_hop, clip_index)
 
 
 def evaluate(config, module, overlap_hop: int = 512, verbose: bool = False,
@@ -146,8 +163,9 @@ def evaluate(config, module, overlap_hop: int = 512, verbose: bool = False,
         answer_gt = json.load(f)['task2_answer']
     to_metric = output_to_metric(HOP, SR)
     final_score = []
-    for path in sorted(glob(os.path.join(eval_dir, '*.wav'))):
-        scores = clip_scores(config, module, path, overlap_hop)
+    paths = sorted(glob(os.path.join(eval_dir, '*.wav')))
+    for i, path in enumerate(paths):
+        scores = clip_scores(config, module, path, overlap_hop, i)
         grid = (scores >= 0.5).float().cpu().numpy()
         cls0, cls1, cls2 = get_start_end_frame(grid)
         gt = np.asarray(answer_gt[os.path.basename(path)[:-4]])

@@ -9,7 +9,11 @@ var become weight/bias/running_mean/running_var. A ConvTranspose kernel
 flax (``transpose_kernel=False``) applies it unflipped, torch's
 ``ConvTranspose2d`` flipped. The se cascade's ``se/...`` and ``vad/...``
 subtrees map to its ``se.`` and ``vad.`` submodules, the second by the
-VAD rules.
+VAD rules. vad v7's top-level ``Conv_k`` and ``BatchNorm_k`` are its
+bottlenecks' layers in threes (bottleneck k // 3, layer k % 3). The v9
+BiLSTM's cells keep flax's per-gate leaves (``ii``..``io`` kernels,
+``hi``..``ho`` kernels and biases), so each maps to one Linear of the
+port's ``LSTM``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ _RULES = [
     (r'ConvMPBlock_(\d+)/Conv_(\d+)/(kernel|bias)', 'blocks.{0}.convs.{1}'),
     (r'ConvMPBlock_(\d+)/BatchNorm_(\d+)/BatchNorm_0/(\w+)',
      'blocks.{0}.bns.{1}'),
+    (r'Conv_(\d+)/kernel',
+     lambda k: f'bottlenecks.{int(k) // 3}.convs.{int(k) % 3}'),
+    (r'BatchNorm_(\d+)/BatchNorm_0/(\w+)',
+     lambda k, _: f'bottlenecks.{int(k) // 3}.bns.{int(k) % 3}'),
+    (r'BiLSTM_0/OptimizedLSTMCell_(\d)/([ih][ifgo])/(kernel|bias)',
+     'lstm.cells.{0}.gates.{1}'),
     (r'Dense_0/(kernel|bias)', 'td'),
     (r'FullyConnectedLayer_(\d+)/Dense_0/(kernel|bias)', 'fcs.{0}.dense'),
     (r'FullyConnectedLayer_(\d+)/BatchNorm_0/BatchNorm_0/(\w+)',
@@ -55,7 +65,8 @@ def _torch_entry(path: str, leaf: str, arr: np.ndarray):
         m = re.fullmatch(pattern, path)
         if m is None:
             continue
-        module = prefix + target.format(*m.groups())
+        module = prefix + (target(*m.groups()) if callable(target)
+                           else target.format(*m.groups()))
         if leaf == 'kernel' and 'ConvTranspose' in path:
             return f'{module}.weight', arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if leaf == 'kernel':

@@ -11,7 +11,8 @@ head's Dense layers and BatchNorms take [B, T, D]. Keras parity:
 * 'SAME' 2x2/2 max pooling pads odd sizes at the end with -inf
   (``ceil_mode=True``): 5 -> 3.
 * Weights start from flax's defaults: LeCun normal (truncated) kernels,
-  zero biases, BN scale 1 and bias 0, running mean 0 and variance 1.
+  zero biases, BN scale 1 and bias 0, running mean 0 and variance 1; the
+  LSTM's recurrent kernels orthogonal.
 """
 
 from __future__ import annotations
@@ -134,6 +135,120 @@ class FullyConnectedLayer(nn.Module):
         if self.bn is not None:
             x = self.bn(x)
         return self.act(x)
+
+
+class Bottleneck(nn.Module):
+    """vad v7's 1-3-1 residual bottleneck on NCHW (counterpart:
+    ``challenge_tpu/models/vad.py:50-66``; reference: sj_train.py:230-241):
+    bias-free convs 1x1 (c -> c/4), 3x3 (c/4 -> c/4) and 1x1 (c/4 -> c),
+    each followed by BN and ReLU, then the input added."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            nn.Conv2d(ch, ch // 4, 1, bias=False),
+            nn.Conv2d(ch // 4, ch // 4, 3, padding=1, bias=False),
+            nn.Conv2d(ch // 4, ch, 1, bias=False)])
+        self.bns = nn.ModuleList(BatchNorm(c) for c in (ch // 4, ch // 4, ch))
+
+    def reset_parameters(self, gen=None) -> None:
+        for conv, bn in zip(self.convs, self.bns):
+            lecun_normal_(conv.weight, kernel_fan_in(conv), gen)
+            bn.reset_parameters()
+
+    def forward(self, x):
+        skip = x
+        for conv, bn in zip(self.convs, self.bns):
+            x = F.relu(bn(conv(x)))
+        return x + skip
+
+
+_GATES = ('i', 'f', 'g', 'o')
+
+
+class LSTM(nn.Module):
+    """One direction of flax's ``OptimizedLSTMCell`` scanned over time, on
+    [B, T, D] (counterpart: ``nn.RNN(nn.OptimizedLSTMCell(H))``). Each gate
+    keeps flax's own parameters: an input kernel without bias
+    (``ii``, ``if``, ``ig``, ``io``: Linear D -> H) and a hidden kernel with
+    one (``hi``, ``hf``, ``hg``, ``ho``: Linear H -> H). So there is one
+    trained bias per gate, as in flax (torch's ``nn.LSTM`` has two, which
+    both receive the bias's gradient), and AGC sees each gate's kernel and
+    bias as its own tensor, as JAX's per-leaf clipping does. The gates run
+    in (i, f, g, o) order: pre = (h W_h + b) + x W_i, sigmoid for i, f and
+    o, tanh for g; c' = f c + i g, h' = o tanh(c'); the state starts at
+    zero. ``reverse`` scans from the last frame and keeps the output in
+    frame order (``reverse=True, keep_order=True``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 reverse: bool = False):
+        super().__init__()
+        self.reverse = reverse
+        self.gates = nn.ModuleDict()
+        for g in _GATES:
+            self.gates['i' + g] = nn.Linear(in_features, features, bias=False)
+        for g in _GATES:
+            self.gates['h' + g] = nn.Linear(features, features)
+
+    def reset_parameters(self, gen=None) -> None:
+        for g in _GATES:
+            lin = self.gates['i' + g]
+            lecun_normal_(lin.weight, lin.in_features, gen)
+            lin = self.gates['h' + g]
+            nn.init.orthogonal_(lin.weight, generator=gen)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x):
+        w_i = torch.cat([self.gates['i' + g].weight for g in _GATES])
+        w_h = torch.cat([self.gates['h' + g].weight for g in _GATES])
+        b_h = torch.cat([self.gates['h' + g].bias for g in _GATES])
+        xw = torch.matmul(x, w_i.T)                      # [B, T, 4H]
+        h = x.new_zeros((x.shape[0], w_h.shape[1]))
+        c = torch.zeros_like(h)
+        steps = range(x.shape[1])
+        outs = [None] * x.shape[1]
+        for t in (reversed(steps) if self.reverse else steps):
+            pre = (torch.matmul(h, w_h.T) + b_h) + xw[:, t]
+            i, f, g, o = pre.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs[t] = h
+        return torch.stack(outs, dim=1)
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional LSTM, outputs concatenated [forward, backward]
+    (counterpart: ``challenge_tpu/models/layers.py:105-116``; reference:
+    sj_train.py:252). ``cells.0`` and ``cells.1`` are flax's
+    ``OptimizedLSTMCell_0`` and ``_1``."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.cells = nn.ModuleList([LSTM(in_features, features),
+                                    LSTM(in_features, features, True)])
+
+    def reset_parameters(self, gen=None) -> None:
+        for cell in self.cells:
+            cell.reset_parameters(gen)
+
+    def forward(self, x):
+        return torch.cat([cell(x) for cell in self.cells], dim=-1)
+
+
+def smoothing_pool(x, k: int):
+    """vad v6's smoothing over the time axis (the last) of NCHW (counterpart:
+    ``challenge_tpu/models/vad.py:41-49``): an average pool of k frames and
+    then a max pool of 2k frames, both with stride 1 and 'SAME' padding.
+    An even window pads unevenly, (w - 1) // 2 frames before and the rest
+    after; the average divides by the count of frames inside the input and
+    the max pool pads with -inf."""
+    t = x.shape[-1]
+    lo = (k - 1) // 2
+    summed = F.pad(x, (lo, k - 1 - lo)).unfold(-1, k, 1).sum(-1)
+    counts = F.pad(x.new_ones(t), (lo, k - 1 - lo)).unfold(-1, k, 1).sum(-1)
+    lo = (2 * k - 1) // 2
+    x = F.pad(summed / counts, (lo, 2 * k - 1 - lo), value=float('-inf'))
+    return F.max_pool2d(x, (1, 2 * k), 1)
 
 
 def max_pool_same(x):

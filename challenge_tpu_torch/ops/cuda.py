@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/challenge_tpu_torch/`` at the
 repository root, at first use, then loaded with ``ctypes``. The library's
-file name carries a hash of its source, so an edited kernel is rebuilt and a
-stale one is never loaded. Nothing here runs at import time: the CPU tests
+file name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one is never
+loaded. Nothing here runs at import time: the CPU tests
 import every module on machines with no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one where it
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC / f'{name}.cu').read_bytes() + b''.join(
+        p.read_bytes() for p in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(text + ' '.join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 
 

@@ -2,8 +2,9 @@
 
 A numpy copy of ``tf.signal.linear_to_mel_weight_matrix(n_mels, 257, 16000)``
 with TF's default band edges (125 Hz, 3800 Hz), built once on the host. The
-projection is a plain matmul: at the call site in training, and in
-:func:`magnitude_to_mel` for evaluation.
+projection is a plain matmul: at the call site in training (or, on the
+fused path, inside kernel B4), in :func:`complex_to_mel` for the channel
+maps' complex spectrograms, and in :func:`magnitude_to_mel` for evaluation.
 """
 
 from __future__ import annotations
@@ -53,3 +54,17 @@ def magnitude_to_mel(mag: torch.Tensor, melm: torch.Tensor) -> torch.Tensor:
     (counterpart: ``magphase_to_mel`` on the magnitude half of a magphase,
     mel.py:80-103; reference: transforms.py:58-77)."""
     return torch.einsum('ftc,fm->mtc', mag, melm)
+
+
+def complex_to_mel(spec: torch.Tensor, melm: torch.Tensor) -> torch.Tensor:
+    """Complex spectrogram [B, T, freq, planes] (real planes first) ->
+    mel [B, n_mels, T, chan] (counterpart: ``complex_to_mel`` of
+    ``challenge_tpu/data/pipeline.py:90-103``, 'tfc' layout). The magnitude
+    is taken in the spectrogram's dtype, and its real and imaginary halves
+    broadcast against each other: n_chan 1's three planes give 2 channels
+    (the ``mono_chan`` quirk). The product runs in ``melm``'s float32, as
+    JAX promotes a bfloat16 magnitude."""
+    n = spec.shape[-1] // 2
+    real, imag = spec[..., :n], spec[..., n:]
+    mag = torch.sqrt(real * real + imag * imag)
+    return torch.einsum('btfc,fm->bmtc', mag.to(melm.dtype), melm)

@@ -1,9 +1,10 @@
 """Mixture synthesis (counterpart: ``challenge_tpu/ops/pallas_synth.py``,
-its magnitude and flat-complex modes).
+all four modes of its one kernel).
 
-``synthesize_magnitude`` and ``synthesize_flat`` are the wrappers of the
-CUDA kernels in ``csrc/synth.cu``, which replace ``pallas_synth.py::_kernel``.
-Per sample both take the background window, add each active voice clip and
+``synthesize_magnitude``, ``synthesize_flat`` and ``synthesize_mel`` are
+the wrappers of the CUDA kernels in ``csrc/synth.cu`` and
+``csrc/synth_mel.cu``, which replace ``pallas_synth.py::_kernel``. Per
+sample all three take the background window, add each active voice clip and
 then each active noise clip, in slot order, at its row shift, and drop rows
 outside the window. Bank elements are upcast to float32 and the sum is
 taken in float32 whatever their type; int8 banks are dequantized by the
@@ -15,7 +16,11 @@ the weights. They differ in the epilogue:
   memory: ``synth_mag_f32`` for float32 banks (B1), ``synth_mag_bf16`` and
   ``synth_mag_int8`` for bfloat16 and int8 banks (B3);
 * ``synthesize_flat`` returns the window itself, the flat-complex output
-  (B2): ``synth_flat_f32``, ``synth_flat_bf16`` and ``synth_flat_int8``.
+  (B2): ``synth_flat_f32``, ``synth_flat_bf16`` and ``synth_flat_int8``;
+* ``synthesize_mel`` returns the masked mel of the float32 magnitude and
+  its per-sample min and max, and neither the window nor the magnitude
+  reaches device memory (B4, the fused mel epilogue): ``synth_mel_f32``,
+  ``synth_mel_bf16`` and ``synth_mel_int8``.
 
 See the source for the kernels' bound and design. ``*_plain`` compute the
 same ordered sum with separate PyTorch ops. The wrappers use them only for
@@ -25,7 +30,9 @@ tensors on the CPU; for CUDA tensors they launch a kernel or raise.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from challenge_tpu_torch.ops import cuda
@@ -38,6 +45,9 @@ KERNELS = {torch.float32: ('synth_mag_f32', torch.float32),
 FLAT_KERNELS = {torch.float32: 'synth_flat_f32',
                 torch.bfloat16: 'synth_flat_bf16',
                 torch.int8: 'synth_flat_int8'}
+MEL_KERNELS = {torch.float32: 'synth_mel_f32',
+               torch.bfloat16: 'synth_mel_bf16',
+               torch.int8: 'synth_mel_int8'}      # float32 outputs
 MAX_SLOTS = 32      # voice + noise slots per sample the kernel takes
 
 
@@ -111,10 +121,82 @@ def synthesize_flat_plain(n_frame: int, bgbank, bidx, boff,
     return acc.to(KERNELS[bgbank.dtype][1])
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-             + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-             + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+class MelBand(NamedTuple):
+    """The nonzero band of a mel matrix [freq, n_mels] as the mel kernels
+    take it: per mel bin, the rows (ascending) and weights of its nonzero
+    entries (CSR: bin m's are ``off[m] .. off[m + 1]``), on the matrix's
+    device; ``f_lo`` and ``n_f`` bound the rows that any bin reads, and
+    ``rows`` lists them."""
+    off: torch.Tensor
+    row: torch.Tensor
+    w: torch.Tensor
+    f_lo: int
+    n_f: int
+    rows: tuple
+
+
+def mel_band(melm: torch.Tensor) -> MelBand:
+    """The :class:`MelBand` of ``melm``, computed on the host (one copy
+    from the device); callers that apply one matrix to many batches build
+    it once. The entries must be >= 0, which makes leaving out the zero
+    terms of the mel sum exact."""
+    m = melm.detach().float().cpu().numpy()
+    if m.ndim != 2 or (m < 0).any():
+        raise ValueError('the mel matrix must be [freq, n_mels] and >= 0')
+    nz = m != 0
+    rows = np.flatnonzero(nz.any(axis=1))
+    f_lo, f_hi = (int(rows[0]), int(rows[-1])) if rows.size else (0, 0)
+    row = np.concatenate([np.flatnonzero(nz[:, j]) for j in
+                          range(m.shape[1])]).astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(nz.sum(axis=0))]).astype(np.int32)
+    w = m[row, np.repeat(np.arange(m.shape[1]), np.diff(off))]
+    dev = melm.device
+    band = MelBand(torch.from_numpy(off).to(dev),
+                   torch.from_numpy(row).to(dev),
+                   torch.from_numpy(np.ascontiguousarray(w)).to(dev),
+                   f_lo, f_hi - f_lo + 1, tuple(int(f) for f in rows))
+    return band
+
+
+def synthesize_mel_plain(n_frame: int, bgbank, bidx, boff,
+                         vbank, vidx, vshift, vw,
+                         nbank=None, nidx=None, nshift=None, nw=None,
+                         vlens=None, nlens=None, bgscale=None, melm=None,
+                         tmask=None, fmask=None, band=None):
+    """The mel kernels' function as separate PyTorch ops: the ordered sum,
+    the float32 magnitude (whatever the bank dtype), times ``fmask``; then
+    the mel sum over the nonzero rows f of ``melm`` in increasing order,
+    one rounded product and one rounded add per row, as the kernel takes
+    it (a zero weight adds an exact 0); then times ``tmask``. Returns
+    ``(mel [B, n_mels, n_frame, chans], mm [B, 2])``, both float32, with
+    ``mm`` the per-sample min and max of the mel. ``band``: as in
+    :func:`synthesize_mel`."""
+    acc = _ordered_sum(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                       nbank, nidx, nshift, nw, vlens, nlens, bgscale)
+    half = acc.shape[-1] // 2
+    re, im = acc[..., :half], acc[..., half:]
+    x = torch.sqrt((re * re + im * im).double()).float() * fmask[:, None, :]
+    freq, n_mels = melm.shape
+    b = acc.shape[0]
+    x = x.reshape(b, n_frame, half // freq, freq)
+    mel = torch.zeros((b, n_frame, half // freq, n_mels), device=x.device)
+    for f in (mel_band(melm) if band is None else band).rows:
+        mel = mel + x[..., f, None] * melm[f]
+    mel = (mel * tmask[:, :, None, None]).permute(0, 3, 1, 2).contiguous()
+    return mel, torch.stack([mel.amin(dim=(1, 2, 3)),
+                             mel.amax(dim=(1, 2, 3))], dim=1)
+
+
+_SOURCE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                    + [ctypes.c_void_p])
+_ARGTYPES = (_SOURCE_ARGTYPES + [ctypes.c_void_p] + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
+_MEL_ARGTYPES = (_SOURCE_ARGTYPES + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _check(name, x, dtype, shape=None, device=None):
@@ -128,26 +210,24 @@ def _check(name, x, dtype, shape=None, device=None):
         raise ValueError(f'{name}: must be contiguous')
 
 
-def _launch(flat: bool, n_frame: int, bgbank, bidx, boff,
-            vbank, vidx, vshift, vw, nbank, nidx, nshift, nw, vlens, nlens,
-            bgscale):
-    """Check the arguments, then run the plain version on the CPU or launch
-    the magnitude (``flat=False``) or flat-complex kernel on CUDA."""
-    plain = synthesize_flat_plain if flat else synthesize_magnitude_plain
-    what = plain.__name__[:-len('_plain')]
-    device, dtype = bgbank.device, bgbank.dtype
-    if dtype not in KERNELS:
-        raise TypeError(f'bank dtype {dtype}: expected one of '
+def _check_dtype(bgbank, bgscale) -> None:
+    if bgbank.dtype not in KERNELS:
+        raise TypeError(f'bank dtype {bgbank.dtype}: expected one of '
                         f'{sorted(str(d) for d in KERNELS)}')
-    if (bgscale is not None) != (dtype == torch.int8):
+    if (bgscale is not None) != (bgbank.dtype == torch.int8):
         raise ValueError('bgscale is required iff the banks are int8')
-    if device.type == 'cpu':
-        return plain(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
-                     nbank, nidx, nshift, nw, vlens, nlens, bgscale)
+
+
+def _source_args(what: str, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                 nbank, nidx, nshift, nw, vlens, nlens, bgscale):
+    """Check the synthesis arguments for a launch on CUDA and return them as
+    the entry points take them (pointers, strides and slot counts), with
+    the per-source tensors they point into. The caller keeps those until
+    it has launched: default lens are made here, and once freed their
+    block may go to the next allocation before the kernel reads it."""
+    device, dtype = bgbank.device, bgbank.dtype
     if device.type != 'cuda':
         raise ValueError(f'{what}: unsupported device {device}')
-
-    name = FLAT_KERNELS[dtype] if flat else KERNELS[dtype][0]
     b, width = bidx.shape[0], bgbank.shape[-1]
     if width % 2:
         raise ValueError(f'flat width {width} must be even (re | im halves)')
@@ -160,7 +240,8 @@ def _launch(flat: bool, n_frame: int, bgbank, bidx, boff,
         _check('bgscale', bgscale, torch.float32, (b,), device)
     srcs = _sources(vbank, vidx, vshift, vw, nbank, nidx, nshift, nw,
                     vlens, nlens)
-    args = []
+    args = [bgbank.data_ptr(), bidx.data_ptr(), boff.data_ptr(),
+            bgbank.shape[1] * width]
     n_slots = 0
     for name_, (bank, idx, shift, w, lens) in zip(('voice', 'noise'), srcs):
         k = idx.shape[1]
@@ -182,21 +263,41 @@ def _launch(flat: bool, n_frame: int, bgbank, bidx, boff,
     if n_slots > MAX_SLOTS:
         raise ValueError(f'{n_slots} clip slots per sample; the kernel '
                          f'takes at most {MAX_SLOTS}')
+    return args + [None if bgscale is None else bgscale.data_ptr()], srcs
 
-    out = torch.empty((b, n_frame, width if flat else width // 2),
-                      dtype=KERNELS[dtype][1], device=device)
-    fn = getattr(cuda.load('synth'), name)
+
+def _run(lib: str, name: str, argtypes, *args) -> None:
+    """Launch entry point ``name`` of ``csrc/<lib>.cu`` on the current
+    stream of the first argument's device, and count the launch."""
+    fn = getattr(cuda.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(bgbank.data_ptr(), bidx.data_ptr(), boff.data_ptr(),
-                 bgbank.shape[1] * width, *args,
-                 None if bgscale is None else bgscale.data_ptr(),
-                 out.data_ptr(), b, n_frame, width, stream)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{name} launch failed: CUDA error {err}')
     cuda.LAUNCHES[name] += 1
+
+
+def _launch(flat: bool, n_frame: int, bgbank, bidx, boff,
+            vbank, vidx, vshift, vw, nbank, nidx, nshift, nw, vlens, nlens,
+            bgscale):
+    """Check the arguments, then run the plain version on the CPU or launch
+    the magnitude (``flat=False``) or flat-complex kernel on CUDA."""
+    plain = synthesize_flat_plain if flat else synthesize_magnitude_plain
+    _check_dtype(bgbank, bgscale)
+    if bgbank.device.type == 'cpu':
+        return plain(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                     nbank, nidx, nshift, nw, vlens, nlens, bgscale)
+    # srcs holds the tensors args points into until the launch
+    args, srcs = _source_args(plain.__name__[:-len('_plain')], bgbank, bidx,
+                              boff, vbank, vidx, vshift, vw, nbank, nidx,
+                              nshift, nw, vlens, nlens, bgscale)
+    dtype, b, width = bgbank.dtype, bidx.shape[0], bgbank.shape[-1]
+    out = torch.empty((b, n_frame, width if flat else width // 2),
+                      dtype=KERNELS[dtype][1], device=bgbank.device)
+    with torch.cuda.device(bgbank.device):
+        _run('synth', FLAT_KERNELS[dtype] if flat else KERNELS[dtype][0],
+             _ARGTYPES, *args, out.data_ptr(), b, n_frame, width)
     return out
 
 
@@ -234,3 +335,56 @@ def synthesize_flat(n_frame: int, bgbank, bidx, boff,
     neither ``magnitude`` nor ``mel``."""
     return _launch(True, n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
                    vw, nbank, nidx, nshift, nw, vlens, nlens, bgscale)
+
+
+def synthesize_mel(n_frame: int, bgbank, bidx, boff,
+                   vbank, vidx, vshift, vw,
+                   nbank=None, nidx=None, nshift=None, nw=None,
+                   vlens=None, nlens=None, bgscale=None, melm=None,
+                   tmask=None, fmask=None, band=None):
+    """The synthesized windows' masked mel and its per-sample min and max:
+    ``(mel [B, n_mels, n_frame, chans], mm [B, 2])``, float32 for every
+    bank dtype; the JAX ``synthesize_windows(..., mel=...)``, with the mel
+    in the model's layout.
+
+    Synthesis arguments and checks as :func:`synthesize_magnitude`, then
+    melm: [freq, n_mels] float32 mel matrix (>= 0) applied to each channel
+    plane (freq = F / 2 / chans); tmask: [B, n_frame] and fmask: [B, F / 2]
+    float32 {0,1} time and column masks (column c * freq + f); band: the
+    :func:`mel_band` of ``melm``, built from it when None. Runs
+    :func:`synthesize_mel_plain` on the CPU and kernel B4
+    (``csrc/synth_mel.cu``) on CUDA."""
+    _check_dtype(bgbank, bgscale)
+    if melm is None or tmask is None or fmask is None:
+        raise ValueError('synthesize_mel needs melm, tmask and fmask')
+    if bgbank.device.type == 'cpu':
+        return synthesize_mel_plain(n_frame, bgbank, bidx, boff, vbank, vidx,
+                                    vshift, vw, nbank, nidx, nshift, nw,
+                                    vlens, nlens, bgscale, melm, tmask, fmask,
+                                    band)
+    # srcs holds the tensors args points into until the launch
+    args, srcs = _source_args('synthesize_mel', bgbank, bidx, boff, vbank,
+                              vidx, vshift, vw, nbank, nidx, nshift, nw,
+                              vlens, nlens, bgscale)
+    device, b, width = bgbank.device, bidx.shape[0], bgbank.shape[-1]
+    _check('melm', melm, torch.float32, device=device)
+    freq, n_mels = melm.shape
+    if (width // 2) % freq:
+        raise ValueError(f'flat width {width}: not 2 x chans x {freq} rows')
+    chans = width // 2 // freq
+    _check('tmask', tmask, torch.float32, (b, n_frame), device)
+    _check('fmask', fmask, torch.float32, (b, width // 2), device)
+    if band is None:
+        band = mel_band(melm)
+    if band.off.numel() != n_mels + 1 or band.w.device != device:
+        raise ValueError('band: not the mel_band of melm on its device')
+    mel = torch.empty((b, n_mels, n_frame, chans), dtype=torch.float32,
+                      device=device)
+    mm = torch.empty((b, 2), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        _run('synth_mel', MEL_KERNELS[bgbank.dtype], _MEL_ARGTYPES, *args,
+             band.off.data_ptr(), band.row.data_ptr(), band.w.data_ptr(),
+             band.row.numel(), n_mels, band.f_lo, band.n_f, freq,
+             tmask.data_ptr(), fmask.data_ptr(), mel.data_ptr(),
+             mm.data_ptr(), b, n_frame, width)
+    return mel, mm

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
-                                     # vad and se steps
+                                     # vad v8, se and vad v9 steps
     python3 chip_smoke.py --cudnn-ab # also the model step with cuDNN's
                                      # algorithm timing off and on, each in
                                      # a fresh process (off, on, on, off)
@@ -12,9 +12,10 @@ Phases, in order; any failure raises, and the script then exits non-zero
 without the result line:
 
 1. build every hand-written CUDA kernel from challenge_tpu_torch/csrc with
-   nvcc for sm_90a, and print the build seconds and ptxas' report (the six
-   instances of csrc/synth.cu: magnitude and flat-complex output, each for
-   float32, bfloat16 and int8 banks);
+   nvcc for sm_90a, one nvcc per source, all started together, and print
+   the build seconds and ptxas' report for all nine instances (csrc/synth.cu:
+   magnitude and flat-complex output; csrc/synth_mel.cu: the fused mel;
+   each for float32, bfloat16 and int8 banks);
 2. make random spec banks on the card at a realistic size (32 backgrounds
    of 1,875 frames, 512 voices of 40-130 frames, 128 noises of 20-100,
    each [257, T, 4] float32, from a seed), as float32, bfloat16 and int8
@@ -36,6 +37,13 @@ without the result line:
    every voice weight zeroed, the voices over the one-item zero background
    bank with a unit background scale, and that call with every voice slot
    inactive;
+3d. the same for the three fused mel kernels, mel and min/max, bit for
+   bit (both take the float32 root, the {0,1} masks and the mel sum over
+   the nonzero band in increasing order, every product and sum rounded),
+   on the main path's draws (vad v9, batch 12, 512 frames) with training
+   masks, eval masks (all ones) and the filter columns, on batch 1, on a
+   sample whose time mask zeroes every frame (its min and max must be 0),
+   and on the adversarial cases;
 4. check the port on the card against the port on the CPU on a small
    input: synthesis bit for bit, log-mel within 1e-5 mean abs error,
    labels exact, and one training-mode forward and loss within 1e-5
@@ -46,6 +54,11 @@ without the result line:
    training-mode forward of the full-width pretrain cascade and
    ``se_loss``, the card's float32 held to a float64 CPU copy within 1e-5
    of each output's peak or 10 times the CPU float32's distance;
+4d. the fused mel path on a small input (batch 4, 80 mels, 64 frames):
+   the kernel's mel and min/max and the labels bit for bit against the
+   CPU on the same draws and masks, the log-mel within 2 float32 ulps
+   (each device's own log); then one training-mode forward and loss of
+   full-width vad v6, v7 and v9, held to float64 as in 4c;
 5. the main path: ``get_model(Config(model_type='vad', v=8))`` at full width
    (base 48, td_dim 1024, 80 mels, 512 frames, batch 12),
    ``DevicePipeline`` and ``TrainLoop.fit`` for 5 training steps and 1
@@ -62,6 +75,20 @@ without the result line:
    weights and BN statistics must be bit-identical before and after, every
    tensor of the trained half must move, and the losses (class, speech,
    noise, validation class ER) must be finite;
+5c. this slice's main path: ``get_model(Config(model_type='vad', v=9))``
+   at full width (base 32, td_dim 1024, 80 mels, 512 frames, batch 12,
+   BiLSTM head) trained by ``TrainLoop.fit`` from an iterator over
+   ``FeatureFn(cfg, fused_mel=True)`` on float32 banks, 5 training steps and
+   1 validation step; then v6 and v7 for 2 steps each on the same path, and
+   v9 for 2 steps each on bfloat16 and int8 banks. Each run's counts are
+   set to 0 just before and read just after: the mel kernel of the banks'
+   dtype must have run once a batch and no other kernel, and every logged
+   value must be finite;
+5d. full-width vad v8 with n_chan 3 and 4 through ``DevicePipeline``'s
+   complex branch, 2 steps each: the float32 flat-complex kernel once a
+   batch and nothing else, features and model inputs 3 and 4 wide; and
+   n_chan 1, whose card features keep 2 channels (the reference's
+   ``mono_chan`` quirk) and whose training raises the port's ValueError;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the flat-complex kernels on the se full mix), and the vad training
@@ -70,7 +97,11 @@ without the result line:
    pretrain step (10 steps); then the vad training step in banks mode, as
    the CLI runs it, and the batch pipeline alone, with float32 and int8
    banks in turns (float32, int8, int8, float32), so that only the bank
-   dtype differs;
+   dtype differs; the mel kernels against their plain versions in turns,
+   with bounds over the band's columns and over all columns; the v9
+   fused-mel training step (``v9_step_ms``, 20 steps); and the batch
+   pipeline through B1 and the matmul mel (``pipeline_ms``) and through B4
+   (``fused_mel_pipeline_ms``) in turns (unfused, fused, fused, unfused);
 7. the CLI chain, in a temporary directory: the realistic spec sets as
    pickles under sj_train's default file names, and a dev set of 6
    two-channel 16 kHz WAVs of 60 s with ``sample_answer.json``; then
@@ -101,7 +132,13 @@ without the result line:
    the finetune run with ``--bank_dtype bfloat16`` for the same epochs,
    162 bfloat16 launches, its trio, and a U-Net bit-identical to the
    pretrain checkpoint's; then ``cli.eval.main`` on the finetuned
-   ``_SWA.h5``, which must return 6 finite ERs, timed.
+   ``_SWA.h5``, which must return 6 finite ERs, timed;
+7c. the channel maps' CLI chain in that directory: ``cli.sj_train.main``
+   with ``--model_type vad --v 9 --n_chan 3 --bank_dtype int8`` for 3
+   epochs of 2 steps (16 validation steps each), which must launch the
+   int8 flat-complex kernel once a batch (54 times) and write the trio;
+   ``cli.eval.main --p`` on it, and ``evaluate()`` with the n_chan 4 model
+   of 5d and an n_chan 1 model from ``get_model``, 6 finite ERs each.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -142,8 +179,9 @@ from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.ops.augment import batch_mask_keep
 from challenge_tpu_torch.ops.dsp import load_wav
 from challenge_tpu_torch.ops.synth import (
-    FLAT_KERNELS, KERNELS, synthesize_flat, synthesize_flat_plain,
-    synthesize_magnitude, synthesize_magnitude_plain)
+    FLAT_KERNELS, KERNELS, MEL_KERNELS, synthesize_flat,
+    synthesize_flat_plain, synthesize_magnitude, synthesize_magnitude_plain,
+    synthesize_mel, synthesize_mel_plain)
 from challenge_tpu_torch.train.checkpoint import load_weights
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
 
@@ -305,6 +343,317 @@ def synth_work(d, width: int, dtype: torch.dtype, flat: bool = False):
         nbytes += 4 * b
         flops += window
     return nbytes, flops
+
+
+def mel_work(d, width: int, dtype: torch.dtype, band, n_mels: int,
+             all_columns: bool = False):
+    """(bytes, flops) that the fused mel kernel needs on the draws ``d``:
+    each sample's background window and the rows of every active clip
+    that land in it, over the band's columns only (re and im of both
+    channels at rows f_lo .. f_lo + n_f - 1; ``all_columns`` counts all
+    F columns, the dense mel matrix and the full column mask instead), the
+    slot tables, the masks, the band and the mel and min/max written,
+    each once; a multiply and an add per clip element, 3 operations, a
+    root and the mask per magnitude, a multiply and an add per nonzero mel
+    product and the time mask per output."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    n_frame, b = d.n_frame, d.bidx.shape[0]
+    cols = width if all_columns else 4 * band.n_f
+    rows, table = 0, 2 * b * 4
+    for shift, w, lens in ((d.vshift, d.vw, d.vlens),
+                           (d.nshift, d.nw, d.nlens)):
+        if shift is None:
+            continue
+        lo = (-shift).clamp(min=0)
+        hi = torch.minimum(lens, n_frame - shift)
+        rows += int(((hi - lo).clamp(min=0) * (w != 0)).sum())
+        table += 4 * shift.numel() * 4
+    window = b * n_frame * cols
+    nnz = band.row.numel()
+    freq = width // 4
+    masks = 4 * b * (n_frame + cols // 2)
+    band_bytes = (4 * freq * n_mels if all_columns
+                  else 4 * (n_mels + 1) + 8 * nnz)
+    out = b * n_frame * n_mels * 2
+    nbytes = (elem * (window + rows * cols) + table + masks + band_bytes
+              + 4 * out + 8 * b)
+    products = freq * n_mels if all_columns else nnz
+    flops = (2 * rows * cols + 5 * window // 2
+             + 2 * b * n_frame * 2 * products + out)
+    if dtype == torch.int8:
+        nbytes += 4 * b
+        flops += window
+    return nbytes, flops
+
+
+def mel_diff(args, melm, tmask, fmask) -> float:
+    """Max abs difference of a mel kernel and its plain version on
+    ``args``, over the mel and the min/max."""
+    kw = dict(melm=melm, tmask=tmask, fmask=fmask)
+    (mel, mm), (ref, ref_mm) = (synthesize_mel(*args, **kw),
+                                synthesize_mel_plain(*args, **kw))
+    torch.cuda.synchronize()
+    for a, r in ((mel, ref), (mm, ref_mm)):
+        if a.shape != r.shape or a.dtype != r.dtype or a.dtype != \
+                torch.float32:
+            raise AssertionError(f'kernel {a.shape} {a.dtype}, plain '
+                                 f'{r.shape} {r.dtype}')
+    return max(float((mel - ref).abs().max()),
+               float((mm - ref_mm).abs().max()))
+
+
+def random_masks(b: int, nf: int, seed: int, dev, zero_sample=None):
+    """{0,1} float32 time masks [b, nf] and column masks [b, 514] made with
+    numpy; ``zero_sample`` masks every frame of that sample."""
+    rng = np.random.default_rng(seed)
+    tmask = (rng.random((b, nf)) > 0.2).astype(np.float32)
+    fmask = (rng.random((b, 514)) > 0.2).astype(np.float32)
+    if zero_sample is not None:
+        tmask[zero_sample] = 0.0
+    return (torch.from_numpy(tmask).to(dev), torch.from_numpy(fmask).to(dev))
+
+
+def draws_head(d, n: int):
+    """The first ``n`` samples of the draws ``d``."""
+    return mixture.Draws(d.n_frame, *(None if x is None else x[:n]
+                                      for x in d[1:]))
+
+
+def mel_checks(dev, banks, main_draws, cases) -> dict:
+    """Phase 3d: each mel kernel against its plain version, mel and
+    min/max, on the main path's draws with training masks, eval masks
+    (all ones) and the filter columns, on batch 1, on a sample whose time
+    mask zeroes every frame, and on the adversarial cases (rounded or
+    quantized for the low-precision banks)."""
+    cfg = Config(model_type='vad', v=9, name='filter')
+    fn = FeatureFn(cfg, device=dev, fused_mel=True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs = {}
+    for name, dt in FLAT_DTYPES.items():
+        e = dict.fromkeys(('main_train', 'main_eval', 'main_filter',
+                           'batch1', 'masked_sample'), 0.0)
+        for d in main_draws[:3]:
+            args = mixture.synth_args(banks[name], d)
+            tmask, fmask = fn.masks(gen)
+            fmask = fmask.repeat(1, 2)
+            ones = (torch.ones_like(tmask), torch.ones_like(fmask))
+            e['main_train'] = max(e['main_train'],
+                                  mel_diff(args, fn.melm, tmask, fmask))
+            e['main_eval'] = max(e['main_eval'], mel_diff(args, fn.melm,
+                                                          *ones))
+            e['main_filter'] = max(e['main_filter'], mel_diff(
+                args, fn.melm, tmask, fmask * fn.filter_cols))
+            one = mixture.synth_args(banks[name], draws_head(d, 1))
+            e['batch1'] = max(e['batch1'], mel_diff(one, fn.melm, tmask[:1],
+                                                    fmask[:1]))
+            zero = tmask.clone()
+            zero[3] = 0.0
+            e['masked_sample'] = max(e['masked_sample'], mel_diff(
+                args, fn.melm, zero, fmask))
+            _, mm = synthesize_mel(*args, melm=fn.melm, tmask=zero,
+                                   fmask=fmask)
+            if mm[3].tolist() != [0.0, 0.0] or not bool((mm[:3, 1] > 0).all()):
+                raise AssertionError(f'min/max of a masked sample: {mm}')
+        for i, (case, args) in enumerate(cases.items()):
+            args = (args + (None,) if dt == torch.float32
+                    else lowp_case(args, dt))
+            tmask, fmask = random_masks(args[2].shape[0], args[0], i, dev,
+                                        zero_sample=0)
+            e[case] = mel_diff(args, fn.melm, tmask, fmask)
+        errs[MEL_KERNELS[dt]] = e
+    return errs
+
+
+def feature_iter(banks, cfg, training: bool = True, fused_mel: bool = True):
+    """Batches of ``FeatureFn(cfg, training, fused_mel=...)`` drawn with a
+    ``torch.Generator`` seeded as ``DevicePipeline`` seeds its own."""
+    fn = FeatureFn(cfg, training, fused_mel=fused_mel)
+    gen = torch.Generator(device=fn.device)
+    gen.manual_seed(cfg.seed + (0 if training else 1))
+    while True:
+        yield fn(gen, banks)
+
+
+def check_launches(what: str, launches: dict, expected: dict) -> None:
+    log(f'{what} launches: {json.dumps(launches)}')
+    if launches != expected:
+        raise AssertionError(f'{what}: launches {launches}, expected '
+                             f'{expected}')
+
+
+def mel_main_path(banks) -> dict:
+    """Phase 5c: vad v9 at full width through ``FeatureFn(fused_mel=True)``
+    on float32 banks, ``TrainLoop.fit`` for 5 training steps and 1
+    validation step; then v6 and v7 for 2 steps each on the same path, and
+    v9 for 2 steps each on bfloat16 and int8 banks. Each run's counts are
+    set to 0 just before it and read just after: the mel kernel of the
+    banks' dtype must have run once a batch and no other kernel. Returns
+    the v9 loop and its iterator for phase 6, and the results."""
+    res = {'mel_launches': {}}      # per run, 'v9_float32', ...
+    out = None
+    for v, name, steps, val_steps in (
+            (9, 'float32', TRAIN_STEPS, VAL_STEPS), (6, 'float32', 2, 0),
+            (7, 'float32', 2, 0), (9, 'bfloat16', 2, 0), (9, 'int8', 2, 0)):
+        cfg = Config(model_type='vad', v=v)
+        loop = TrainLoop(get_model(cfg))
+        n_params = sum(p.numel() for p in loop.state.module.parameters())
+        train_it = feature_iter(banks[name], cfg)
+        val_it = feature_iter(banks[name], cfg, training=False)
+        cuda.reset_launch_counts()
+        hist = loop.fit(train_it, epochs=1, steps_per_epoch=steps,
+                        validation_iter=val_it if val_steps else None,
+                        validation_steps=val_steps, verbose=0)
+        torch.cuda.synchronize()
+        kernel = MEL_KERNELS[FLAT_DTYPES[name]]
+        launches = dict(cuda.LAUNCHES)
+        check_launches(f'vad v{v} fused mel, {name} banks', launches,
+                       {kernel: steps + val_steps})
+        res['mel_launches'][f'v{v}_{name}'] = launches
+        logs = hist[0]
+        if not all(math.isfinite(x) for k, x in logs.items() if k != 'time'):
+            raise AssertionError(f'vad v{v} {name}: non-finite logs {logs}')
+        res[f'v{v}_{name}'] = dict(params=n_params, loss=logs['loss'],
+                                   val_loss=logs.get('val_loss'))
+        if out is None:
+            out = loop, train_it
+    return out + (res,)
+
+
+def chan_main_path(banks) -> dict:
+    """Phase 5d: full-width vad v8 with n_chan 3 and 4 through
+    ``DevicePipeline``'s complex branch, 2 steps each, the float32
+    flat-complex kernel once a batch; and n_chan 1, whose features keep 2
+    channels and whose training raises the port's ValueError. Returns the
+    n_chan 4 model for phase 7c, and the results."""
+    res = {}
+    model = None
+    for n_chan in (3, 4, 1):
+        cfg = Config(model_type='vad', v=8, n_chan=n_chan)
+        bundle = get_model(cfg)
+        it = iter(DevicePipeline(banks, cfg))
+        if n_chan == 1:
+            x, _ = next(it)
+            if x.shape[-1] != 2 or bundle.input_shape[-1] != 1:
+                raise AssertionError(f'n_chan 1: features {tuple(x.shape)}')
+            try:
+                TrainLoop(bundle).fit(it, epochs=1, steps_per_epoch=1,
+                                      verbose=0)
+            except ValueError as e:
+                if 'mono_chan' not in str(e):
+                    raise
+                log(f'n_chan 1: 2-channel features; training raises: {e}')
+            else:
+                raise AssertionError('n_chan 1 training did not raise')
+            continue
+        loop = TrainLoop(bundle)
+        x, _ = next(it)
+        if x.shape[-1] != n_chan or bundle.input_shape[-1] != n_chan:
+            raise AssertionError(f'n_chan {n_chan}: features '
+                                 f'{tuple(x.shape)}')
+        cuda.reset_launch_counts()
+        hist = loop.fit(it, epochs=1, steps_per_epoch=2, verbose=0)
+        torch.cuda.synchronize()
+        check_launches(f'vad v8 n_chan {n_chan}', dict(cuda.LAUNCHES),
+                       {'synth_flat_f32': 2})
+        if not math.isfinite(hist[0]['loss']):
+            raise AssertionError(f'n_chan {n_chan}: loss {hist[0]}')
+        res[f'chan{n_chan}_loss'] = hist[0]['loss']
+        model = bundle.module
+    return model, res
+
+
+def mel_reference_check(dev) -> dict:
+    """Phase 4d: the card against the CPU on a small input (batch 4, 80
+    mels, 64 frames): the fused-mel kernel's mel and min/max and the labels
+    bit for bit on the same draws and masks, the log-mel features within 2
+    float32 ulps (the log rounds on each device's own libm); then one
+    training-mode forward and loss of full-width vad v6, v7 and v9, the
+    card's float32 held to a float64 CPU copy within ``SCORE_TOL`` of each
+    output's peak or 10 times the CPU float32's distance (phase 8's
+    rule)."""
+    cpu = torch.device('cpu')
+    cfg = Config(model_type='vad', v=9, n_frame=64, batch_size=4)
+    src = sources(3, 3, (20, 90), 6, (10, 40), 3, (8, 20))
+    banks = {d: build_banks(*src, n_frame=64, device=d) for d in (cpu, dev)}
+    draws = mixture.draw(torch.Generator().manual_seed(5), banks[cpu], 4, 64)
+    gdraws = mixture.Draws(*(x.to(dev) if torch.is_tensor(x) else x
+                             for x in draws))
+    fns = {d: FeatureFn(cfg, device=d, fused_mel=True) for d in (cpu, dev)}
+    tmask, fmask = fns[cpu].masks(torch.Generator().manual_seed(6))
+    fmask = fmask.repeat(1, 2)
+    out = {}
+    for d, dr in ((cpu, draws), (dev, gdraws)):
+        (mel, mm), y = mixture.synthesize_mel(banks[d], dr, fns[d].melm,
+                                              tmask.to(d), fmask.to(d))
+        x, y = fns[d].fused_features(mel, mm, y)
+        out[d] = [t.cpu() for t in (mel, mm, y, x)]
+    for c, g in zip(out[cpu][:3], out[dev][:3]):
+        if not torch.equal(c, g):
+            raise AssertionError('card vs CPU fused mel: max diff '
+                                 f'{float((g - c).abs().max())}')
+    xc, xg = out[cpu][3], out[dev][3]
+    ulp = torch.nextafter(xc.abs(), torch.tensor(float('inf'))) - xc.abs()
+    if not bool(((xg - xc).abs() <= 2 * ulp).all()):
+        raise AssertionError('card vs CPU fused log-mel beyond 2 ulps')
+    res = {'fused_logmel_bit_equal': bool(torch.equal(xc, xg))}
+    gaps = {}
+    for v in (6, 7, 9):
+        m_c = get_model(Config(model_type='vad', v=v, n_frame=64),
+                        device=cpu, seed=v).module
+        models = {'cpu': m_c, 'card': copy.deepcopy(m_c).to(dev),
+                  'f64': copy.deepcopy(m_c).double()}
+        r = {}
+        with torch.no_grad():
+            for key, m in models.items():
+                where = dev if key == 'card' else cpu
+                dt = torch.float64 if key == 'f64' else torch.float32
+                o = m.train()(xc.to(where, dt))
+                r[key] = torch.cat([o.double().cpu().flatten(),
+                                    binary_crossentropy(
+                                        out[cpu][2].to(where, dt),
+                                        o).double().cpu().reshape(1)])
+        gaps[f'v{v}'] = {k: float((r[k] - r['f64']).abs().max()
+                                  / r['f64'].abs().max())
+                         for k in ('cpu', 'card')}
+        if gaps[f'v{v}']['card'] > max(SCORE_TOL,
+                                       10 * gaps[f'v{v}']['cpu']):
+            raise AssertionError(f'card vad v{v} forward beyond the '
+                                 f'tolerance: {gaps}')
+    log('card vs CPU fused mel, small input: mel, min/max and labels '
+        f'equal, log-mel bit-equal {res["fused_logmel_bit_equal"]}; v6, v7, '
+        f'v9 forward and loss gaps to float64 over the peak '
+        f'{json.dumps(gaps)}')
+    return dict(res, version_forward_gaps=gaps)
+
+
+def chan_cli_chain(d: str, n_chan4_model) -> dict:
+    """Phase 7c, in the CLI chain's directory ``d``: ``cli.sj_train`` with
+    vad v9, n_chan 3 and int8 banks for 3 epochs of 2 steps, the int8
+    flat-complex kernel once a batch; its trio; ``cli.eval --p``; then
+    ``evaluate()`` on the same dev set with the n_chan 4 model of phase 5d
+    and an n_chan 1 model from ``get_model``."""
+    res = {}
+    batches = CLI_EPOCHS * (SE_CLI_STEPS + CLI_VAL_STEPS)
+    run, res['chan3_launches'], res['chan3_cli_s'] = run_cli(
+        ['--model_type', 'vad', '--v', '9', '--n_chan', '3', '--datapath', d,
+         '--bank_dtype', 'int8', '--epochs', str(CLI_EPOCHS),
+         '--steps_per_epoch', str(SE_CLI_STEPS)], 'synth_flat_int8', batches)
+    res['chan3_cli_batches'] = batches
+    check_trio(run)
+    ers = {'chan3_cli': eval_cli.main(['--name', run, '--p'])}
+    for n_chan, module in ((4, n_chan4_model),
+                           (1, get_model(Config(model_type='vad', v=9,
+                                                n_chan=1)).module)):
+        ers[f'chan{n_chan}'] = infer.evaluate(
+            Config(model_type='vad', v=8 if n_chan == 4 else 9,
+                   n_chan=n_chan), module)
+    torch.cuda.synchronize()
+    for k, e in ers.items():
+        if len(e) != 6 or not all(map(math.isfinite, e)):
+            raise AssertionError(f'{k} ERs: {e}')
+    log(f'n_chan eval, 6 x 60 s: ERs {json.dumps(ers)}')
+    res['chan_ers'] = ers
+    return res
 
 
 def gpu_ms(fn, arg_list, reps: int) -> float:
@@ -670,8 +1019,8 @@ def se_cli_chain(d: str) -> dict:
     return res
 
 
-def cli_chain(dev, train_src, test_src) -> dict:
-    """Phases 7, 8 and 7b, in a temporary directory that is removed
+def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
+    """Phases 7, 8, 7b and 7c, in a temporary directory that is removed
     after."""
     res = {}
     cwd = os.getcwd()
@@ -710,6 +1059,7 @@ def cli_chain(dev, train_src, test_src) -> dict:
             res['bf16_batches'] = CLI_STEPS + CLI_VAL_STEPS
             res.update(card_vs_cpu_eval(dev, run, answers))
             res.update(se_cli_chain(d))
+            res.update(chan_cli_chain(d, chan4_model))
         finally:
             os.chdir(cwd)
     return res
@@ -882,7 +1232,7 @@ def main(argv) -> int:
         f'{torch.cuda.get_device_name(0)}')
 
     # 1. build
-    secs = cuda.build(['synth'], verbose=True)
+    secs = cuda.build(['synth', 'synth_mel'], verbose=True)
     log(f'build: {secs:.3f} s')
 
     # 2. banks at a realistic size, in the three bank dtypes
@@ -934,6 +1284,8 @@ def main(argv) -> int:
                            ('se_no_voice', no_voice)):
             e[case] = max_abs_diff(args, flat=True)
         errs[FLAT_KERNELS[dt]] = e
+    # 3d. the fused mel kernels
+    errs.update(mel_checks(dev, banks, main_draws, cases))
     log('kernel vs plain, max abs diff: ' + json.dumps(errs))
     if any(v != 0.0 for e in errs.values() for v in e.values()):
         raise AssertionError('a synthesis kernel disagrees with its plain '
@@ -942,6 +1294,7 @@ def main(argv) -> int:
     # 4, 4b, 4c. the card against the CPU on a small input
     log('card vs CPU, small input: ' + json.dumps(small_reference_check(dev)))
     se_ref = se_reference_check(dev)
+    mel_ref = mel_reference_check(dev)
 
     # 5. the main path
     f32_kernel = KERNELS[torch.float32][0]
@@ -964,6 +1317,11 @@ def main(argv) -> int:
 
     # 5b. the se slice's main path
     se_loop, se_train_it, se = se_main_path(banks['float32'])
+
+    # 5c. this slice's main path: vad v9 through the fused mel kernel; 5d.
+    # the channel maps through the flat-complex kernel
+    v9_loop, v9_train_it, mel = mel_main_path(banks)
+    chan4_model, chan = chan_main_path(banks['float32'])
 
     # 6. times: each kernel on the main path's draws (the flat-complex
     # ones on the se full mix, the first of its three calls)
@@ -994,6 +1352,46 @@ def main(argv) -> int:
             log(f'{names[dt]}: kernel {kernel_ms} ms, plain {plain_ms} ms, '
                 f'{nbytes / 1e6:.3f} MB and {flops / 1e9:.4f} GFLOP per '
                 f'call, bound {bound_ms * 1e3:.3f} us')
+    # the mel kernels on the main path's draws with training masks; bounds
+    # over the band's columns and, beside them, over all columns
+    mel_fn = FeatureFn(Config(model_type='vad', v=9), device=dev,
+                       fused_mel=True)
+    band = mel_fn.band
+    mask_gen = torch.Generator(device=dev).manual_seed(3)
+    masks = []
+    for _ in main_draws:
+        tmask, fmask = mel_fn.masks(mask_gen)
+        masks.append((mel_fn.melm, tmask, fmask.repeat(1, 2)))
+    for name, dt in FLAT_DTYPES.items():
+        args = [mixture.synth_args(banks[name], d) + m
+                for d, m in zip(main_draws, masks)]
+        kernel_ms, plain_ms = [], []
+        for which in ('plain', 'kernel', 'kernel', 'plain'):
+            fn = synthesize_mel if which == 'kernel' else synthesize_mel_plain
+            run = (lambda fn: lambda *a: fn(*a[:-3], melm=a[-3], tmask=a[-2],
+                                            fmask=a[-1], band=band))(fn)
+            if which == 'kernel':
+                kernel_ms.append(gpu_ms(run, args, 64))
+            else:
+                plain_ms.append(gpu_ms(run, args, 16))
+        width = banks[name].backgrounds.flat.shape[-1]
+        work = {cols: [mel_work(d, width, dt, band, 80, cols == 'all')
+                       for d in main_draws] for cols in ('band', 'all')}
+        nbytes = {k: sum(w[0] for w in v) / len(v) for k, v in work.items()}
+        flops = sum(w[1] for w in work['band']) / len(work['band'])
+        bound_ms = max(nbytes['band'] / HBM_BYTES_PER_S,
+                       flops / FP32_FLOPS) * 1e3
+        timing[MEL_KERNELS[dt]] = dict(
+            ms=sum(kernel_ms) / len(kernel_ms),
+            plain_ms=sum(plain_ms) / len(plain_ms), bound_ms=bound_ms,
+            bound_by=('bytes' if nbytes['band'] / HBM_BYTES_PER_S
+                      >= flops / FP32_FLOPS else 'operations'),
+            bound_ms_all_columns=nbytes['all'] / HBM_BYTES_PER_S * 1e3)
+        log(f'{MEL_KERNELS[dt]}: kernel {kernel_ms} ms, plain {plain_ms} ms, '
+            f'{nbytes["band"] / 1e6:.3f} MB over the band '
+            f'({nbytes["all"] / 1e6:.3f} MB over all columns) and '
+            f'{flops / 1e9:.4f} GFLOP per call, bound '
+            f'{bound_ms * 1e3:.3f} us')
 
     batch = next(train_it)
     step_ms = wall_ms(lambda: loop.run_epoch(train_it, 20, training=True),
@@ -1019,6 +1417,27 @@ def main(argv) -> int:
         profile_steps(se_loop, se_train_it, 5, 'SE_PROFILE')
     del se_loop, se_train_it, se_batch
 
+    # the v9 fused-mel step, timed as vad's; then the batch pipeline
+    # through kernel B4 and through B1 plus the matmul mel, in turns
+    v9_loop.run_epoch(v9_train_it, 3, training=True)
+    mel['v9_step_ms'] = wall_ms(lambda: v9_loop.run_epoch(
+        v9_train_it, 20, training=True), 1) / 20
+    v9_batch = next(v9_train_it)
+    mel['v9_model_step_ms'] = wall_ms(
+        lambda: v9_loop.train_step(v9_loop.state, v9_batch), 20)
+    if '--profile' in argv:
+        profile_steps(v9_loop, v9_train_it, 10, 'V9_PROFILE')
+    v9_cfg = Config(model_type='vad', v=9)
+    pipes = {k: feature_iter(banks['float32'], v9_cfg, fused_mel=k)
+             for k in (False, True)}
+    for it in pipes.values():
+        next(it)
+    mel['pipeline_ms'], mel['fused_mel_pipeline_ms'] = [], []
+    for fused in (False, True, True, False):
+        mel['fused_mel_pipeline_ms' if fused else 'pipeline_ms'].append(
+            wall_ms(lambda: next(pipes[fused]), 20))
+    del v9_loop, v9_train_it, v9_batch, pipes
+
     # the training step in banks mode, as the CLI runs it, and the batch
     # pipeline alone, with float32 and int8 banks in turns
     bank_step_ms = {'float32': [], 'int8': []}
@@ -1038,7 +1457,7 @@ def main(argv) -> int:
     # 7, 8. the CLI chain; the banks above are no longer needed
     del banks
     test_src = sources(1, 8, 1875, 128, (40, 130), 0, 1)
-    cli = cli_chain(dev, src, test_src)
+    cli = cli_chain(dev, src, test_src, chan4_model)
     del src
 
     smi = subprocess.run(
@@ -1054,6 +1473,9 @@ def main(argv) -> int:
     log('SE ' + json.dumps({**{k: v for k, v in se.items()
                                 if k != 'se_launches'}, **se_ref,
                              'card': smi}))
+    log('MEL ' + json.dumps({**{k: v for k, v in mel.items()
+                                 if k != 'mel_launches'}, **chan, **mel_ref,
+                              'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
                              if not k.endswith('launches')}))
     log(smi)
@@ -1064,10 +1486,15 @@ def main(argv) -> int:
             'synth_flat_bf16': (cli['se_bf16_launches'],
                                 cli['se_cli_batches']),
             'synth_flat_int8': (cli['se_int8_launches'],
-                                cli['se_cli_batches'])}
+                                cli['se_cli_batches']),
+            **{k: (mel['mel_launches'][run], n) for k, run, n in (
+                ('synth_mel_f32', 'v9_float32', TRAIN_STEPS + VAL_STEPS),
+                ('synth_mel_bf16', 'v9_bfloat16', 2),
+                ('synth_mel_int8', 'v9_int8', 2))}}
     log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
-        'source': 'challenge_tpu_torch/csrc/synth.cu',
+        'source': 'challenge_tpu_torch/csrc/' + (
+            'synth_mel.cu' if name.startswith('synth_mel') else 'synth.cu'),
         'replaces': 'challenge_tpu/ops/pallas_synth.py:79',
         'launches': runs[name][0].get(name, 0),
         'launches_per_step': runs[name][0].get(name, 0) / runs[name][1],

@@ -128,6 +128,59 @@ def synth_case(name):
                 for k, v in a.items()}
 
 
+def bank_case(name, dtype):
+    """An adversarial case of :func:`synth_case` in one bank dtype, as
+    (n_frame, the arrays JAX's kernel takes, the arrays of the numpy
+    oracle). Bank rows are zero-padded to a multiple of 32 (JAX's int8
+    sublane rule) with each clip's true length passed, so the sum is the
+    float32 case's; bfloat16 banks are that case rounded, int8 banks
+    quantized per item with the clip scales folded into the weights and
+    the background scales passed, as the int8 banks are."""
+    nf, a = synth_case(name)
+    a = dict(a)
+    for p in ('v', 'n'):
+        if f'{p}bank' in a and f'{p}lens' not in a:
+            a[f'{p}lens'] = np.full(a[f'{p}idx'].shape, a[f'{p}bank'].shape[1],
+                                    np.int32)
+    for key in ('bgbank', 'vbank', 'nbank'):
+        if key in a:
+            rows = a[key].shape[1]
+            a[key] = np.pad(a[key], ((0, 0), (0, 32 - rows % 32 + 32),
+                                     (0, 0)))
+    oracle = dict(a)
+    if dtype == 'bfloat16':
+        for key in ('bgbank', 'vbank', 'nbank'):
+            if key in a:
+                a[key] = np.asarray(a[key], jax.numpy.bfloat16)
+                oracle[key] = a[key].astype(np.float32)
+    elif dtype == 'int8':
+        scales = {}
+        for key in ('bgbank', 'vbank', 'nbank'):
+            if key in a:
+                peak = np.abs(a[key]).max(axis=(1, 2))
+                scales[key] = np.where(peak > 0, peak / 127.0,
+                                       1.0).astype(np.float32)
+                a[key] = np.clip(np.round(a[key] / scales[key][:, None, None]),
+                                 -127, 127).astype(np.int8)
+        a['bgscale'] = scales['bgbank'][a['bidx']]
+        a['vw'] = a['vw'] * scales['vbank'][a['vidx']]
+        if 'nbank' in a:
+            a['nw'] = a['nw'] * scales['nbank'][a['nidx']]
+        oracle = dict(a)
+        oracle.pop('bgscale')
+        for key in ('bgbank', 'vbank', 'nbank'):
+            if key in a:
+                oracle[key] = a[key].astype(np.float32)
+        oracle['bgbank'] = oracle['bgbank'] * scales['bgbank'][:, None, None]
+    return nf, a, oracle
+
+
+def to_torch(a):
+    return {k: (torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+                if v.dtype == jax.numpy.bfloat16 else torch.from_numpy(v))
+            for k, v in a.items()}
+
+
 def jax_draws(banks, key, batch_size: int = BATCH, n_frame: int = N_FRAME,
               **kw):
     """JAX's ``sample_batch(..., use_pallas=True, layout='tfc',

@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from _torch_parity import (
-    BATCH, N_FRAME, numpy_ordered_sum, port_draws, small_sources, synth_case)
+    BATCH, N_FRAME, bank_case, numpy_ordered_sum, port_draws, small_sources,
+    to_torch)
 from challenge_tpu.config import Config as JConfig
 from challenge_tpu.data.pipeline import build_banks as jax_build_banks
 from challenge_tpu.ops.pallas_synth import synthesize_windows
@@ -40,59 +41,6 @@ from challenge_tpu_torch.ops.synth import (
 RTOL, ATOL = 1e-5, 1e-6
 CASES = ['random', 'long_then_short', 'edges']
 DTYPES = ['float32', 'bfloat16', 'int8']
-
-
-def _bank_case(name, dtype):
-    """An adversarial case of test_torch_synth.py in one bank dtype, as
-    (n_frame, the arrays JAX's kernel takes, the arrays of the numpy
-    oracle). Bank rows are zero-padded to a multiple of 32 (JAX's int8
-    sublane rule) with each clip's true length passed, so the sum is the
-    float32 case's; bfloat16 banks are that case rounded, int8 banks
-    quantized per item with the clip scales folded into the weights and
-    the background scales passed, as the int8 banks are."""
-    nf, a = synth_case(name)
-    a = dict(a)
-    for p in ('v', 'n'):
-        if f'{p}bank' in a and f'{p}lens' not in a:
-            a[f'{p}lens'] = np.full(a[f'{p}idx'].shape, a[f'{p}bank'].shape[1],
-                                    np.int32)
-    for key in ('bgbank', 'vbank', 'nbank'):
-        if key in a:
-            rows = a[key].shape[1]
-            a[key] = np.pad(a[key], ((0, 0), (0, 32 - rows % 32 + 32),
-                                     (0, 0)))
-    oracle = dict(a)
-    if dtype == 'bfloat16':
-        for key in ('bgbank', 'vbank', 'nbank'):
-            if key in a:
-                a[key] = np.asarray(a[key], jax.numpy.bfloat16)
-                oracle[key] = a[key].astype(np.float32)
-    elif dtype == 'int8':
-        scales = {}
-        for key in ('bgbank', 'vbank', 'nbank'):
-            if key in a:
-                peak = np.abs(a[key]).max(axis=(1, 2))
-                scales[key] = np.where(peak > 0, peak / 127.0,
-                                       1.0).astype(np.float32)
-                a[key] = np.clip(np.round(a[key] / scales[key][:, None, None]),
-                                 -127, 127).astype(np.int8)
-        a['bgscale'] = scales['bgbank'][a['bidx']]
-        a['vw'] = a['vw'] * scales['vbank'][a['vidx']]
-        if 'nbank' in a:
-            a['nw'] = a['nw'] * scales['nbank'][a['nidx']]
-        oracle = dict(a)
-        oracle.pop('bgscale')
-        for key in ('bgbank', 'vbank', 'nbank'):
-            if key in a:
-                oracle[key] = a[key].astype(np.float32)
-        oracle['bgbank'] = oracle['bgbank'] * scales['bgbank'][:, None, None]
-    return nf, a, oracle
-
-
-def _torch(a):
-    return {k: (torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
-                if v.dtype == jax.numpy.bfloat16 else torch.from_numpy(v))
-            for k, v in a.items()}
 
 
 def _f32(x):
@@ -113,9 +61,9 @@ def _within_one_bf16_ulp(out, ref):
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('name', CASES)
 def test_flat_plain_matches_pallas_flat_mode(name, dtype):
-    nf, a, _ = _bank_case(name, dtype)
+    nf, a, _ = bank_case(name, dtype)
     ref = synthesize_windows(nf, **a, interpret=True)
-    out = synthesize_flat_plain(nf, **_torch(a))
+    out = synthesize_flat_plain(nf, **to_torch(a))
     assert out.shape == ref.shape == (a['bidx'].shape[0], nf, 128)
     assert out.dtype == (torch.float32 if dtype == 'float32'
                          else torch.bfloat16)
@@ -132,8 +80,8 @@ def test_flat_plain_matches_pallas_flat_mode(name, dtype):
 def test_flat_plain_is_the_rounded_ordered_sum(name, dtype):
     """Bit for bit, the raw window; JAX's float32 window equals the
     FMA-contracted sum, so the FMAs are the whole gap between the two."""
-    nf, a, oracle = _bank_case(name, dtype)
-    out = synthesize_flat_plain(nf, **_torch(a))
+    nf, a, oracle = bank_case(name, dtype)
+    out = synthesize_flat_plain(nf, **to_torch(a))
     acc = torch.from_numpy(numpy_ordered_sum(nf, oracle, fma=False,
                                              magnitude=False))
     assert torch.equal(out, acc.to(out.dtype))
@@ -145,8 +93,8 @@ def test_flat_plain_is_the_rounded_ordered_sum(name, dtype):
 
 
 def test_flat_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
-    nf, a, _ = _bank_case('random', 'int8')
-    t = _torch(a)
+    nf, a, _ = bank_case('random', 'int8')
+    t = to_torch(a)
     cuda.reset_launch_counts()
     assert torch.equal(synthesize_flat(nf, **t),
                        synthesize_flat_plain(nf, **t))
