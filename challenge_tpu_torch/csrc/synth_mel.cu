@@ -7,7 +7,7 @@
 // calls once a batch. The three other modes are synth.cu.
 //
 // What it computes, per sample b, window row t, channel c and mel bin m,
-// with acc the ordered float32 sum of synth.cu (synth_common.cuh: the
+// with acc the ordered float32 sum of synth.cu (ordered_pair below: the
 // background window, then each active voice and noise clip in slot order,
 // every multiply and add rounded once, int8 banks dequantized):
 //   mag[t, c, f] = sqrt(acc[t, c*freq + f]^2 + acc[t, half + c*freq + f]^2)
@@ -35,9 +35,9 @@
 // columns beside it). The arithmetic, a few flops per clip element and
 // about 6 per nonzero mel product, is far below the card's float32 rate.
 //
-// Design. One block per (row tile of kRows window rows, sample), like
-// synth.cu. Thread 0 gathers the tile's active slots; the band goes to
-// shared memory. Phase 1: each thread owns one band column of one channel
+// Design. One block per (row tile of kRows window rows, sample). Warp 0
+// gathers the tile's active slots (synth_common.cuh, shared with synth.cu);
+// the band goes to shared memory. Phase 1: each thread owns one band column of one channel
 // and walks the tile's rows, taking the ordered sum of its (re, im) pair,
 // the root and the frequency mask, into a [kRows, chans x n_f] tile of
 // masked magnitudes in shared memory (16 KB at most for 257 rows). The
@@ -52,16 +52,17 @@
 // kernel launched first on the same stream sets mm to (+inf, 0). Bank
 // type and int8 background scale are template parameters, as in synth.cu.
 // The TPU kernel's software pipeline, 128-lane mm row and block-diagonal
-// mel matrix are layout devices of Mosaic and are not carried over; a
-// tensor-core product, TMA and staged clips are later work.
+// mel matrix are layout devices of Mosaic and are not carried over. Unlike
+// synth.cu, B4 still reads its bank rows straight from device memory, one
+// element per thread per load.
 
 #include "synth_common.cuh"
 
 namespace {
 
 using synth::kMaxSlots;
-using synth::kRows;
 
+constexpr int kRows = 8;        // window rows per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 48 * 1024;   // without the opt-in attribute
@@ -75,6 +76,35 @@ struct Band {
   int f_lo, n_f;      // the synthesized columns: rows f_lo .. f_lo + n_f - 1
   int freq;           // frequency rows per channel plane
 };
+
+// The ordered float32 sum of window row t at the column pair (m, half + m):
+// the background element (times the int8 background scale), then each slot
+// whose row covers t, in order, every multiply and add rounded once.
+template <typename T, bool kScaled>
+__device__ __forceinline__ void ordered_pair(const synth::Slots<T>& s,
+                                             const T* win, float bgscale,
+                                             int t, int m, int half,
+                                             int width, float& re,
+                                             float& im) {
+  // banks are read-only for the whole call: __ldg keeps the loads on the
+  // read-only path that __restrict__ parameters gave them
+  re = synth::upcast(__ldg(win + (long long)t * width + m));
+  im = synth::upcast(__ldg(win + (long long)t * width + half + m));
+  if (kScaled) {                                    // int8 banks
+    re = __fmul_rn(re, bgscale);
+    im = __fmul_rn(im, bgscale);
+  }
+  const int n = s.n;
+  for (int k = 0; k < n; ++k) {
+    const int j = t - s.shift[k];
+    if (j >= 0 && j < s.len[k]) {
+      const T* row = s.clip[k] + (long long)j * width;
+      re = __fadd_rn(re, __fmul_rn(s.w[k], synth::upcast(__ldg(row + m))));
+      im = __fadd_rn(im, __fmul_rn(s.w[k],
+                                   synth::upcast(__ldg(row + half + m))));
+    }
+  }
+}
 
 __global__ void mm_init(unsigned int* mm, int batch) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -103,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) synth_mel_kernel(
   int* s_row = s_off + band.n_mels + 1;                // relative to f_lo
   float* s_w = reinterpret_cast<float*>(s_row + band.nnz);
 
-  if (threadIdx.x == 0) synth::gather_slots(src, b, t0, t1, s);
+  if (threadIdx.x < 32) synth::gather_slots(src, b, t0, t1, s);
   for (int i = threadIdx.x; i <= band.n_mels; i += kThreads) {
     s_off[i] = band.off[i];
   }
@@ -123,8 +153,8 @@ __global__ void __launch_bounds__(kThreads) synth_mel_kernel(
     const float keep = fmask[(long long)b * half + col];
     for (int t = t0; t < t1; ++t) {
       float re, im;
-      synth::ordered_pair<T, kScaled>(s, win, bgscale, t, col, half, width,
-                                      re, im);
+      ordered_pair<T, kScaled>(s, win, bgscale, t, col, half, width, re,
+                               im);
       s_mag[(t - t0) * n_cols + k] =
           __fmul_rn(synth::magnitude(re, im), keep);
     }

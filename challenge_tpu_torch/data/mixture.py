@@ -15,8 +15,8 @@ A batch is made in two steps so that tests can feed JAX's draws to the port:
   flat-complex kernel, for the channel maps of n_chan != 2;
   :func:`synthesize_mel` gives the masked mel and its min and max, through
   the fused mel kernel; :func:`synthesize_se` gives the complex
-  spectrogram and the se family's targets, through the flat-complex
-  kernel.
+  spectrogram and the se family's targets, through the se-triple
+  kernel (the flat-complex sum with three accumulators).
 
 The upper bounds of the voice and noise counts are exclusive, as in the
 reference (tf.random.uniform's exclusive maxval, pipeline.py:43,87): a
@@ -260,35 +260,19 @@ def _labels(banks: Banks, d: Draws):
 
 
 def se_synth_args(banks: Banks, draws: Draws):
-    """The arguments of the se v9 targets' three flat-complex kernel calls
-    (mixture.py:493-527), each a sub-mix of the first in the same order:
-
-    * the full mix, ``synth_args``;
-    * ``only_noise``: the background and the noises, every voice weight
-      zeroed, so that the kernel skips the voices;
-    * ``only_voice``: the voices accumulated from zeros, over a one-item
-      all-zero background bank (with a unit background scale for int8
-      banks), so that quiet voices do not cancel against the background.
-    """
-    args = synth_args(banks, draws)
-    (n_frame, bg, bidx, boff, vbank, vidx, vshift, vw, nbank, nidx, nshift,
-     nw, vlens, nlens, bgscale) = args
-    only_noise = args[:7] + (torch.zeros_like(vw),) + args[8:]
-    zbank = torch.zeros((1, n_frame, bg.shape[-1]), dtype=bg.dtype,
-                        device=bg.device)
-    only_voice = (n_frame, zbank, torch.zeros_like(bidx),
-                  torch.zeros_like(boff), vbank, vidx, vshift, vw, None, None,
-                  None, None, vlens, None,
-                  None if bgscale is None else torch.ones_like(bgscale))
-    return args, only_noise, only_voice
+    """The arguments of the se v9 targets' three flat-complex calls
+    (``synth.se_triple_args`` of :func:`synth_args`): the full mix,
+    ``only_noise`` and ``only_voice``. :func:`synthesize_se` computes all
+    three in one launch; the separate calls are its checks."""
+    return synth.se_triple_args(*synth_args(banks, draws))
 
 
 def synthesize_se(banks: Banks, draws: Draws):
     """Draws -> ``(spec, (label, only_voice, only_noise))`` (counterpart:
     the ``seperate_noise_voice`` branch of ``sample_batch``,
     mixture.py:489-532): complex spectrograms in the reference layout
-    [B, freq, n_frame, chan], from the flat-complex kernel's three calls
-    of :func:`se_synth_args`, and the per-voice frame labels [B, V,
+    [B, freq, n_frame, chan], the three windows of :func:`se_synth_args`
+    from one se-triple kernel launch, and the per-voice frame labels [B, V,
     n_frame, C]. Spectrograms are float32 for float32 banks and bfloat16
     for bfloat16 and int8 banks."""
     chan = banks.backgrounds.chan
@@ -297,7 +281,7 @@ def synthesize_se(banks: Banks, draws: Draws):
         return flat.reshape(flat.shape[0], draws.n_frame, chan, -1).permute(
             0, 3, 1, 2)
 
-    full, only_noise, only_voice = (synth.synthesize_flat(*a) for a in
-                                    se_synth_args(banks, draws))
+    full, only_noise, only_voice = synth.synthesize_se(
+        *synth_args(banks, draws))
     return unflat(full), (_labels(banks, draws), unflat(only_voice),
                           unflat(only_noise))

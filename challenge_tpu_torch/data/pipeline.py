@@ -17,7 +17,7 @@ One batch, by configuration:
   labels -> SpecAugment on the complex planes -> channel map (mono,
   stereo + mono, random merge) -> [stft filter] -> mel -> [minmax] -> log
   -> label downsample.
-* se v9: draws -> complex spectrogram and targets (three B2 calls) -> DC
+* se v9: draws -> complex spectrogram and targets (one se-triple B2 launch) -> DC
   row dropped, real half kept -> label downsample, with no SpecAugment,
   mel or log.
 

@@ -17,6 +17,10 @@ the weights. They differ in the epilogue:
   ``synth_mag_int8`` for bfloat16 and int8 banks (B3);
 * ``synthesize_flat`` returns the window itself, the flat-complex output
   (B2): ``synth_flat_f32``, ``synth_flat_bf16`` and ``synth_flat_int8``;
+* ``synthesize_se`` returns the se v9 targets' three windows (the full
+  mix, only_noise and only_voice of :func:`se_triple_args`) from one
+  launch that reads each source once: ``synth_se_f32``, ``synth_se_bf16``
+  and ``synth_se_int8``, B2 with three accumulators;
 * ``synthesize_mel`` returns the masked mel of the float32 magnitude and
   its per-sample min and max, and neither the window nor the magnitude
   reaches device memory (B4, the fused mel epilogue): ``synth_mel_f32``,
@@ -45,10 +49,14 @@ KERNELS = {torch.float32: ('synth_mag_f32', torch.float32),
 FLAT_KERNELS = {torch.float32: 'synth_flat_f32',
                 torch.bfloat16: 'synth_flat_bf16',
                 torch.int8: 'synth_flat_int8'}
+SE_KERNELS = {torch.float32: 'synth_se_f32',
+              torch.bfloat16: 'synth_se_bf16',
+              torch.int8: 'synth_se_int8'}
 MEL_KERNELS = {torch.float32: 'synth_mel_f32',
                torch.bfloat16: 'synth_mel_bf16',
                torch.int8: 'synth_mel_int8'}      # float32 outputs
 MAX_SLOTS = 32      # voice + noise slots per sample the kernel takes
+MAX_PAIRS = 1024    # column pairs (m, F/2 + m) per row synth.cu takes
 
 
 def _sources(vbank, vidx, vshift, vw, nbank, nidx, nshift, nw, vlens, nlens):
@@ -119,6 +127,42 @@ def synthesize_flat_plain(n_frame: int, bgbank, bidx, boff,
     acc = _ordered_sum(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
                        nbank, nidx, nshift, nw, vlens, nlens, bgscale)
     return acc.to(KERNELS[bgbank.dtype][1])
+
+
+def se_triple_args(n_frame: int, bgbank, bidx, boff, vbank, vidx, vshift,
+                   vw, nbank=None, nidx=None, nshift=None, nw=None,
+                   vlens=None, nlens=None, bgscale=None):
+    """The se v9 targets' three flat-complex calls as argument tuples
+    (counterpart: challenge_tpu/data/mixture.py:493-527), each a sub-mix of
+    the first in the same slot order:
+
+    * the full mix, the arguments as given;
+    * ``only_noise``: the background and the noises, every voice weight
+      zeroed, so that the sum skips the voices;
+    * ``only_voice``: the voices accumulated from zeros, over a one-item
+      all-zero background bank (with a unit background scale for int8
+      banks), so that quiet voices do not cancel against the background.
+    """
+    args = (n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw, nbank,
+            nidx, nshift, nw, vlens, nlens, bgscale)
+    only_noise = args[:7] + (torch.zeros_like(vw),) + args[8:]
+    zbank = torch.zeros((1, n_frame, bgbank.shape[-1]), dtype=bgbank.dtype,
+                        device=bgbank.device)
+    only_voice = (n_frame, zbank, torch.zeros_like(bidx),
+                  torch.zeros_like(boff), vbank, vidx, vshift, vw, None, None,
+                  None, None, vlens, None,
+                  None if bgscale is None else torch.ones_like(bgscale))
+    return args, only_noise, only_voice
+
+
+def synthesize_se_plain(*args):
+    """The se kernels' function as separate PyTorch ops: the three
+    :func:`synthesize_flat_plain` calls of :func:`se_triple_args`. Returns
+    ``(full, only_noise, only_voice)``, each [B, n_frame, F]."""
+    full, only_noise, only_voice = se_triple_args(*args)
+    return (synthesize_flat_plain(*full),
+            synthesize_flat_plain(*only_noise),
+            synthesize_flat_plain(*only_voice))
 
 
 class MelBand(NamedTuple):
@@ -194,9 +238,19 @@ _SOURCE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                     + [ctypes.c_void_p])
 _ARGTYPES = (_SOURCE_ARGTYPES + [ctypes.c_void_p] + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
+_SE_ARGTYPES = (_SOURCE_ARGTYPES + [ctypes.c_void_p] * 3
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _MEL_ARGTYPES = (_SOURCE_ARGTYPES + [ctypes.c_void_p] * 3
                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _check_aligned(name, x) -> None:
+    """The kernels stage bank rows as 16-byte chunks of each range
+    rounded down to 16 bytes, which stays inside a bank that starts on a
+    16-byte boundary (csrc/synth_common.cuh)."""
+    if x.data_ptr() % 16:
+        raise ValueError(f'{name}: data_ptr() is not 16-byte aligned')
 
 
 def _check(name, x, dtype, shape=None, device=None):
@@ -232,6 +286,7 @@ def _source_args(what: str, bgbank, bidx, boff, vbank, vidx, vshift, vw,
     if width % 2:
         raise ValueError(f'flat width {width} must be even (re | im halves)')
     _check('bgbank', bgbank, dtype, device=device)
+    _check_aligned('bgbank', bgbank)
     if bgbank.ndim != 3:
         raise ValueError(f'bgbank: expected [N, rows, F], got {bgbank.shape}')
     _check('bidx', bidx, torch.int32, (b,), device)
@@ -247,6 +302,7 @@ def _source_args(what: str, bgbank, bidx, boff, vbank, vidx, vshift, vw,
         k = idx.shape[1]
         n_slots += k
         _check(f'{name_} bank', bank, dtype, device=device)
+        _check_aligned(f'{name_} bank', bank)
         if bank.ndim != 3 or bank.shape[-1] != width:
             raise ValueError(f'{name_} bank: expected [N, rows, {width}], '
                              f'got {tuple(bank.shape)}')
@@ -278,12 +334,14 @@ def _run(lib: str, name: str, argtypes, *args) -> None:
     cuda.LAUNCHES[name] += 1
 
 
-def _launch(flat: bool, n_frame: int, bgbank, bidx, boff,
+def _launch(mode: str, n_frame: int, bgbank, bidx, boff,
             vbank, vidx, vshift, vw, nbank, nidx, nshift, nw, vlens, nlens,
             bgscale):
     """Check the arguments, then run the plain version on the CPU or launch
-    the magnitude (``flat=False``) or flat-complex kernel on CUDA."""
-    plain = synthesize_flat_plain if flat else synthesize_magnitude_plain
+    the kernel of ``mode`` on CUDA: ``'mag'`` the magnitude, ``'flat'``
+    the flat-complex window, ``'se'`` the se triple's three windows."""
+    plain = {'mag': synthesize_magnitude_plain, 'flat': synthesize_flat_plain,
+             'se': synthesize_se_plain}[mode]
     _check_dtype(bgbank, bgscale)
     if bgbank.device.type == 'cpu':
         return plain(n_frame, bgbank, bidx, boff, vbank, vidx, vshift, vw,
@@ -293,12 +351,18 @@ def _launch(flat: bool, n_frame: int, bgbank, bidx, boff,
                               boff, vbank, vidx, vshift, vw, nbank, nidx,
                               nshift, nw, vlens, nlens, bgscale)
     dtype, b, width = bgbank.dtype, bidx.shape[0], bgbank.shape[-1]
-    out = torch.empty((b, n_frame, width if flat else width // 2),
-                      dtype=KERNELS[dtype][1], device=bgbank.device)
+    if width > 2 * MAX_PAIRS:
+        raise ValueError(f'flat width {width}: the kernels take at most '
+                         f'{2 * MAX_PAIRS} columns (a thread per pair)')
+    name = {'mag': KERNELS[dtype][0], 'flat': FLAT_KERNELS[dtype],
+            'se': SE_KERNELS[dtype]}[mode]
+    outs = [torch.empty((b, n_frame, width // 2 if mode == 'mag' else width),
+                        dtype=KERNELS[dtype][1], device=bgbank.device)
+            for _ in range(3 if mode == 'se' else 1)]
     with torch.cuda.device(bgbank.device):
-        _run('synth', FLAT_KERNELS[dtype] if flat else KERNELS[dtype][0],
-             _ARGTYPES, *args, out.data_ptr(), b, n_frame, width)
-    return out
+        _run('synth', name, _SE_ARGTYPES if mode == 'se' else _ARGTYPES,
+             *args, *(o.data_ptr() for o in outs), b, n_frame, width)
+    return tuple(outs) if mode == 'se' else outs[0]
 
 
 def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
@@ -320,7 +384,7 @@ def synthesize_magnitude(n_frame: int, bgbank, bidx, boff,
     bgscale: [B] float32 background dequantization scales, given iff the
     banks are int8. Same argument order as the JAX ``synthesize_windows``.
     """
-    return _launch(False, n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
+    return _launch('mag', n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
                    vw, nbank, nidx, nshift, nw, vlens, nlens, bgscale)
 
 
@@ -333,7 +397,7 @@ def synthesize_flat(n_frame: int, bgbank, bidx, boff,
     bfloat16 for bfloat16 and int8 banks. Arguments and checks as
     :func:`synthesize_magnitude`; the JAX ``synthesize_windows`` with
     neither ``magnitude`` nor ``mel``."""
-    return _launch(True, n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
+    return _launch('flat', n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
                    vw, nbank, nidx, nshift, nw, vlens, nlens, bgscale)
 
 
@@ -388,3 +452,17 @@ def synthesize_mel(n_frame: int, bgbank, bidx, boff,
              tmask.data_ptr(), fmask.data_ptr(), mel.data_ptr(),
              mm.data_ptr(), b, n_frame, width)
     return mel, mm
+
+
+def synthesize_se(n_frame: int, bgbank, bidx, boff, vbank, vidx, vshift, vw,
+                  nbank=None, nidx=None, nshift=None, nw=None, vlens=None,
+                  nlens=None, bgscale=None):
+    """The se v9 targets' complex windows ``(full, only_noise,
+    only_voice)``, each [B, n_frame, F] in the flat layout: float32 for
+    float32 banks, bfloat16 for bfloat16 and int8 banks. Each equals the
+    :func:`synthesize_flat` call of :func:`se_triple_args` bit for bit.
+    Arguments and checks as :func:`synthesize_magnitude`. Runs
+    :func:`synthesize_se_plain` on the CPU and one ``synth_se_*`` launch
+    on CUDA, which reads the background window and each clip once."""
+    return _launch('se', n_frame, bgbank, bidx, boff, vbank, vidx, vshift,
+                   vw, nbank, nidx, nshift, nw, vlens, nlens, bgscale)

@@ -13,9 +13,10 @@ without the result line:
 
 1. build every hand-written CUDA kernel from challenge_tpu_torch/csrc with
    nvcc for sm_90a, one nvcc per source, all started together, and print
-   the build seconds and ptxas' report for all nine instances (csrc/synth.cu:
-   magnitude and flat-complex output; csrc/synth_mel.cu: the fused mel;
-   each for float32, bfloat16 and int8 banks);
+   the build seconds and ptxas' report for all twelve instances
+   (csrc/synth.cu: magnitude, flat-complex output and the se triple;
+   csrc/synth_mel.cu: the fused mel; each for float32, bfloat16 and int8
+   banks);
 2. make random spec banks on the card at a realistic size (32 backgrounds
    of 1,875 frames, 512 voices of 40-130 frames, 128 noises of 20-100,
    each [257, T, 4] float32, from a seed), as float32, bfloat16 and int8
@@ -26,17 +27,23 @@ without the result line:
    path (batch 12, 512 frames, 7 voice and 2 noise slots) and on
    adversarial draws (negative shifts, shifts of n_frame and beyond,
    inactive slots, long then short clips, no noise bank, a ragged row
-   tile);
+   tile, and misaligned ranges: background windows at odd row offsets and
+   clip banks of 13 and 25 rows, at 1,028 and 514 columns, batch 6 and
+   batch 1, so that staged rows start at every residue mod 16 bytes the
+   element size allows);
 3b. the same for the bfloat16 and int8 magnitude kernels, on banks built
    from the same sources and on the adversarial cases with their banks
    rounded or quantized: bit for bit (both upcast exactly, sum in float32
    in order, take the IEEE root and round it once to bfloat16);
 3c. the same for the three flat-complex kernels (the raw window, rounded
    once to bfloat16 for the low-precision banks), bit for bit, on the main
-   path's draws, the adversarial cases and the se triple: the mix with
-   every voice weight zeroed, the voices over the one-item zero background
-   bank with a unit background scale, and that call with every voice slot
-   inactive;
+   path's draws, the adversarial cases and the se triple's calls: the mix
+   with every voice weight zeroed, the voices over the one-item zero
+   background bank with a unit background scale, and that call with every
+   voice slot inactive; then the three se triple kernels, each of their
+   three outputs against the plain calls and against the single-call
+   kernels, bit for bit, on the main path's draws, the adversarial cases
+   and a mix with every voice slot inactive;
 3d. the same for the three fused mel kernels, mel and min/max, bit for
    bit (both take the float32 root, the {0,1} masks and the mel sum over
    the nonzero band in increasing order, every product and sum rounded),
@@ -70,8 +77,8 @@ without the result line:
    1024, input [12, 256, 512, 2]) on float32 banks, ``DevicePipeline`` and
    ``TrainLoop.fit`` for 3 training steps and 1 validation step; then the
    finetune model, given those weights, for the same. Each run's counts
-   are set to 0 just before and read just after: the float32 flat-complex
-   kernel must have run 3 times a batch and nothing else; the frozen half's
+   are set to 0 just before and read just after: the float32 se triple
+   kernel must have run once a batch and nothing else; the frozen half's
    weights and BN statistics must be bit-identical before and after, every
    tensor of the trained half must move, and the losses (class, speech,
    noise, validation class ER) must be finite;
@@ -84,14 +91,17 @@ without the result line:
    set to 0 just before and read just after: the mel kernel of the banks'
    dtype must have run once a batch and no other kernel, and every logged
    value must be finite;
-5d. full-width vad v8 with n_chan 3 and 4 through ``DevicePipeline``'s
-   complex branch, 2 steps each: the float32 flat-complex kernel once a
-   batch and nothing else, features and model inputs 3 and 4 wide; and
+5d. full-width vad v8 with n_chan 3 on bfloat16 banks and 4 on float32
+   banks through ``DevicePipeline``'s complex branch, 2 steps each: the
+   flat-complex kernel of the banks' dtype once a batch and nothing else,
+   features and model inputs 3 and 4 wide; and
    n_chan 1, whose card features keep 2 channels (the reference's
    ``mono_chan`` quirk) and whose training raises the port's ValueError;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
-   (the flat-complex kernels on the se full mix), and the vad training
+   (the se triple's: its sources read once, three windows written), the
+   launch of an empty kernel (PyTorch's spin kernel for 0 cycles) timed
+   the same way, and the vad training
    step (20 steps of one epoch, read back once, as ``fit`` does), the
    batch pipeline and the model step on their own; the same for the se
    pretrain step (10 steps); then the vad training step in banks mode, as
@@ -125,12 +135,12 @@ without the result line:
 7b. the se CLI chain in that directory: ``cli.sj_train.main`` with
    ``--model_type se --v 9 --pretrain True --bank_dtype int8`` for 3
    epochs of 2 steps (16 validation steps each), which must launch the
-   int8 flat-complex kernel 3 times a batch (162 times) and write the trio
+   int8 se triple kernel once a batch (54 times) and write the trio
    under the run name ending ``_weight``; that checkpoint copied to the
    finetune run's name, which the finetune run loads (the reference's
    bool flag reads any ``--pretrain`` value as True, so it is left out);
    the finetune run with ``--bank_dtype bfloat16`` for the same epochs,
-   162 bfloat16 launches, its trio, and a U-Net bit-identical to the
+   54 bfloat16 launches, its trio, and a U-Net bit-identical to the
    pretrain checkpoint's; then ``cli.eval.main`` on the finetuned
    ``_SWA.h5``, which must return 6 finite ERs, timed;
 7c. the channel maps' CLI chain in that directory: ``cli.sj_train.main``
@@ -179,9 +189,10 @@ from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.ops.augment import batch_mask_keep
 from challenge_tpu_torch.ops.dsp import load_wav
 from challenge_tpu_torch.ops.synth import (
-    FLAT_KERNELS, KERNELS, MEL_KERNELS, synthesize_flat,
-    synthesize_flat_plain, synthesize_magnitude, synthesize_magnitude_plain,
-    synthesize_mel, synthesize_mel_plain)
+    FLAT_KERNELS, KERNELS, MEL_KERNELS, SE_KERNELS, se_triple_args,
+    synthesize_flat, synthesize_flat_plain, synthesize_magnitude,
+    synthesize_magnitude_plain, synthesize_mel, synthesize_mel_plain,
+    synthesize_se, synthesize_se_plain)
 from challenge_tpu_torch.train.checkpoint import load_weights
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
 
@@ -242,17 +253,40 @@ def max_abs_diff(args, flat: bool = False) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
+def se_diff(args) -> float:
+    """Max abs difference of an se triple kernel's three outputs and the
+    plain version's (the three plain flat-complex calls of
+    ``se_triple_args``), and of them and the three single-call kernels."""
+    outs, refs = synthesize_se(*args), synthesize_se_plain(*args)
+    singles = [synthesize_flat(*a) for a in se_triple_args(*args)]
+    torch.cuda.synchronize()
+    diff = 0.0
+    for out, ref, single in zip(outs, refs, singles):
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            raise AssertionError(f'kernel {out.shape} {out.dtype}, plain '
+                                 f'{ref.shape} {ref.dtype}')
+        diff = max(diff, float((out.float() - ref.float()).abs().max()),
+                   float((out.float() - single.float()).abs().max()))
+    return diff
+
+
 def adversarial_cases(dev):
     """Synthesis arguments that probe the kernel's edges, made with numpy:
     negative shifts and shifts of n_frame and past it, w == 0 slots, clips
     longer than their stated length after short ones in the same slot, a
     lens past the bank's rows, no noise bank, and n_frame not a multiple
-    of the kernel's 8-row tile. float32 banks; see :func:`lowp_case`."""
+    of the kernel's row tile; and misaligned ranges: background windows at
+    odd row offsets and clip banks of 13 and 25 rows (odd item strides), so
+    that the staged row ranges start at every residue mod 16 bytes that
+    the element size allows (multiples of 4 for int8 rows of 1028 columns;
+    every even residue at 514 columns, one complex channel, whose F/2 = 257
+    is odd), at batch 6 and batch 1. float32 banks; see
+    :func:`lowp_case`."""
     rng = np.random.default_rng(11)
     f = 4 * 257
 
-    def bank(n, rows, lens=None):
-        x = rng.standard_normal((n, rows, f)).astype(np.float32)
+    def bank(n, rows, lens=None, width=f):
+        x = rng.standard_normal((n, rows, width)).astype(np.float32)
         if lens is not None:
             for i, t in enumerate(lens):
                 x[i, t:] = 0.0
@@ -285,6 +319,22 @@ def adversarial_cases(dev):
         floats(rng.uniform(0.5, 1, (2, 3))),
         None, None, None, None, ints(np.asarray(lens)[[[0, 1, 2], [3, 2, 1]]]),
         None)
+    for name, nf, b, width, boff in (('misaligned', 45, 6, f, range(1, 7)),
+                                     ('misaligned_b1', 29, 1, f, [3]),
+                                     ('half_odd', 33, 4, f // 2,
+                                      [1, 2, 3, 5])):
+        n_bg, n_v, n_x = 3, 6, 5
+        cases[name] = (
+            nf, bank(n_bg, 77, width=width), ints(np.arange(b) % n_bg),
+            ints(list(boff)), bank(n_v, 13, width=width),
+            ints(rng.integers(0, n_v, (b, 5))),
+            ints(rng.integers(-12, nf, (b, 5))),
+            floats(rng.uniform(0.1, 1, (b, 5))), bank(n_x, 25, width=width),
+            ints(rng.integers(0, n_x, (b, 2))),
+            ints(rng.integers(-20, nf, (b, 2))),
+            floats(rng.uniform(0.1, 1, (b, 2))),
+            ints(rng.integers(5, 16, (b, 5))),
+            ints(rng.integers(9, 30, (b, 2))))
     return cases
 
 
@@ -314,15 +364,18 @@ def lowp_case(args, dtype: torch.dtype):
             vlens, nlens, bs[bidx.long()])
 
 
-def synth_work(d, width: int, dtype: torch.dtype, flat: bool = False):
+def synth_work(d, width: int, dtype: torch.dtype, flat: bool = False,
+               outputs: int = 1):
     """(bytes, flops) that synthesizing the draws ``d`` from banks of
     ``dtype`` needs, counting what this run's data needs: each sample's
     background window, the rows of every active clip (w != 0) that land in
     the window, the slot tables (and int8's background scales) and the
     output written, each once (the magnitude, F/2 columns, or with
-    ``flat`` the complex window, F columns); a multiply and an add per
-    clip element, int8's background scaling, and 3 operations and a root
-    per magnitude."""
+    ``flat`` the complex window, F columns; ``outputs`` such windows for
+    the se triple, which reads its sources once); a multiply and an add
+    per clip element (and an add per clip element into its sub-mix for the
+    triple), int8's background scaling, and 3 operations and a root per
+    magnitude."""
     elem = torch.empty((), dtype=dtype).element_size()
     out_elem = torch.empty((), dtype=KERNELS[dtype][1]).element_size()
     n_frame, b = d.n_frame, d.bidx.shape[0]
@@ -336,9 +389,9 @@ def synth_work(d, width: int, dtype: torch.dtype, flat: bool = False):
         rows += int(((hi - lo).clamp(min=0) * (w != 0)).sum())
         table += 4 * shift.numel() * 4
     window = b * n_frame * width
-    out = b * n_frame * (width if flat else width // 2)
+    out = outputs * b * n_frame * (width if flat else width // 2)
     nbytes = elem * (window + rows * width) + out_elem * out + table
-    flops = 2 * rows * width + (0 if flat else 4 * out)
+    flops = (2 + (outputs > 1)) * rows * width + (0 if flat else 4 * out)
     if dtype == torch.int8:
         nbytes += 4 * b
         flops += window
@@ -402,12 +455,13 @@ def mel_diff(args, melm, tmask, fmask) -> float:
                float((mm - ref_mm).abs().max()))
 
 
-def random_masks(b: int, nf: int, seed: int, dev, zero_sample=None):
-    """{0,1} float32 time masks [b, nf] and column masks [b, 514] made with
-    numpy; ``zero_sample`` masks every frame of that sample."""
+def random_masks(b: int, nf: int, cols: int, seed: int, dev,
+                 zero_sample=None):
+    """{0,1} float32 time masks [b, nf] and column masks [b, cols] made
+    with numpy; ``zero_sample`` masks every frame of that sample."""
     rng = np.random.default_rng(seed)
     tmask = (rng.random((b, nf)) > 0.2).astype(np.float32)
-    fmask = (rng.random((b, 514)) > 0.2).astype(np.float32)
+    fmask = (rng.random((b, cols)) > 0.2).astype(np.float32)
     if zero_sample is not None:
         tmask[zero_sample] = 0.0
     return (torch.from_numpy(tmask).to(dev), torch.from_numpy(fmask).to(dev))
@@ -457,7 +511,8 @@ def mel_checks(dev, banks, main_draws, cases) -> dict:
         for i, (case, args) in enumerate(cases.items()):
             args = (args + (None,) if dt == torch.float32
                     else lowp_case(args, dt))
-            tmask, fmask = random_masks(args[2].shape[0], args[0], i, dev,
+            tmask, fmask = random_masks(args[2].shape[0], args[0],
+                                        args[1].shape[-1] // 2, i, dev,
                                         zero_sample=0)
             e[case] = mel_diff(args, fn.melm, tmask, fmask)
         errs[MEL_KERNELS[dt]] = e
@@ -520,17 +575,18 @@ def mel_main_path(banks) -> dict:
 
 
 def chan_main_path(banks) -> dict:
-    """Phase 5d: full-width vad v8 with n_chan 3 and 4 through
-    ``DevicePipeline``'s complex branch, 2 steps each, the float32
-    flat-complex kernel once a batch; and n_chan 1, whose features keep 2
-    channels and whose training raises the port's ValueError. Returns the
-    n_chan 4 model for phase 7c, and the results."""
-    res = {}
+    """Phase 5d: full-width vad v8 with n_chan 3 on bfloat16 banks and 4 on
+    float32 banks through ``DevicePipeline``'s complex branch, 2 steps
+    each, the flat-complex kernel of the banks' dtype once a batch; and
+    n_chan 1, whose features keep 2 channels and whose training raises the
+    port's ValueError. Returns the n_chan 4 model for phase 7c, and the
+    results."""
+    res = {'chan_launches': {}}
     model = None
-    for n_chan in (3, 4, 1):
+    for n_chan, name in ((3, 'bfloat16'), (4, 'float32'), (1, 'float32')):
         cfg = Config(model_type='vad', v=8, n_chan=n_chan)
         bundle = get_model(cfg)
-        it = iter(DevicePipeline(banks, cfg))
+        it = iter(DevicePipeline(banks[name], cfg))
         if n_chan == 1:
             x, _ = next(it)
             if x.shape[-1] != 2 or bundle.input_shape[-1] != 1:
@@ -553,8 +609,10 @@ def chan_main_path(banks) -> dict:
         cuda.reset_launch_counts()
         hist = loop.fit(it, epochs=1, steps_per_epoch=2, verbose=0)
         torch.cuda.synchronize()
-        check_launches(f'vad v8 n_chan {n_chan}', dict(cuda.LAUNCHES),
-                       {'synth_flat_f32': 2})
+        launches = dict(cuda.LAUNCHES)
+        check_launches(f'vad v8 n_chan {n_chan}, {name} banks', launches,
+                       {FLAT_KERNELS[FLAT_DTYPES[name]]: 2})
+        res['chan_launches'][n_chan] = launches
         if not math.isfinite(hist[0]['loss']):
             raise AssertionError(f'n_chan {n_chan}: loss {hist[0]}')
         res[f'chan{n_chan}_loss'] = hist[0]['loss']
@@ -814,7 +872,7 @@ def se_main_path(banks) -> dict:
         phase = 'pretrain' if pretrain else 'finetune'
         log(f'se {phase} launches: {json.dumps(launches)}')
         n = SE_STEPS + SE_VAL_STEPS
-        if launches != {'synth_flat_f32': 3 * n}:
+        if launches != {'synth_se_f32': n}:
             raise AssertionError(f'se {phase}: {launches} for {n} batches')
         for k, v in launches.items():
             res['se_launches'][k] = res['se_launches'].get(k, 0) + v
@@ -954,11 +1012,10 @@ def write_spec_sets(d: str, train_src, test_src) -> None:
     np.save(os.path.join(d, cfg.test_labels), tlabels)
 
 
-def run_cli(argv, kernel: str, batches: int, per_batch: int = 1):
+def run_cli(argv, kernel: str, batches: int):
     """``cli.sj_train.main(argv)`` with the launch counts set to 0 just
-    before and read just after; ``kernel`` must have launched
-    ``per_batch`` times a batch. Returns (run name, counts, wall
-    seconds)."""
+    before and read just after; ``kernel`` must have launched once a
+    batch. Returns (run name, counts, wall seconds)."""
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     run = sj_train.main(argv)
@@ -966,7 +1023,7 @@ def run_cli(argv, kernel: str, batches: int, per_batch: int = 1):
     secs = time.perf_counter() - t0
     counts = dict(cuda.LAUNCHES)
     log(f'cli {kernel}: {json.dumps(counts)} in {secs:.3f} s')
-    if counts.get(kernel, 0) != per_batch * batches:
+    if counts.get(kernel, 0) != batches:
         raise AssertionError(f'{kernel} ran {counts.get(kernel, 0)} times '
                              f'for {batches} batches')
     return run, counts, secs
@@ -989,7 +1046,7 @@ def se_cli_chain(d: str) -> dict:
     batches = CLI_EPOCHS * (SE_CLI_STEPS + CLI_VAL_STEPS)
     pre, res['se_int8_launches'], res['se_int8_cli_s'] = run_cli(
         base + ['--bank_dtype', 'int8', '--pretrain', 'True'],
-        'synth_flat_int8', batches, per_batch=3)
+        'synth_se_int8', batches)
     check_trio(pre)
     # the finetune run loads {run}.h5 under its own name, which has no
     # '_weight' (sj_train.py:467-469); the reference's bool flag reads any
@@ -997,8 +1054,7 @@ def se_cli_chain(d: str) -> dict:
     run = pre[:-len('_weight')]
     shutil.copy(pre + '.h5', run + '.h5')
     got, res['se_bf16_launches'], res['se_bf16_cli_s'] = run_cli(
-        base + ['--bank_dtype', 'bfloat16'], 'synth_flat_bf16', batches,
-        per_batch=3)
+        base + ['--bank_dtype', 'bfloat16'], 'synth_se_bf16', batches)
     if got != run:
         raise AssertionError(f'finetune run {got}, expected {run}')
     check_trio(run)
@@ -1267,7 +1323,9 @@ def main(argv) -> int:
         errs[KERNELS[dt][0]] = e
     # 3c. the flat-complex kernels: the same draws and cases, and the se
     # triple's other two calls, and its voices-only call with every voice
-    # slot inactive (nothing but the zero background)
+    # slot inactive (nothing but the zero background); then the se triple
+    # kernels, each output against the plain calls and the single-call
+    # kernels
     for name, dt in FLAT_DTYPES.items():
         e = {'main_path': max(max_abs_diff(mixture.synth_args(banks[name], d),
                                            flat=True)
@@ -1284,6 +1342,15 @@ def main(argv) -> int:
                            ('se_no_voice', no_voice)):
             e[case] = max_abs_diff(args, flat=True)
         errs[FLAT_KERNELS[dt]] = e
+        e = {'main_path': max(se_diff(mixture.synth_args(banks[name], d))
+                              for d in main_draws[:4])}
+        for case, args in cases.items():
+            e[case] = se_diff(args if dt == torch.float32
+                              else lowp_case(args, dt))
+        full = mixture.synth_args(banks[name], main_draws[0])
+        e['no_voice'] = se_diff(full[:7] + (torch.zeros_like(full[7]),)
+                                + full[8:])
+        errs[SE_KERNELS[dt]] = e
     # 3d. the fused mel kernels
     errs.update(mel_checks(dev, banks, main_draws, cases))
     log('kernel vs plain, max abs diff: ' + json.dumps(errs))
@@ -1321,15 +1388,18 @@ def main(argv) -> int:
     # 5c. this slice's main path: vad v9 through the fused mel kernel; 5d.
     # the channel maps through the flat-complex kernel
     v9_loop, v9_train_it, mel = mel_main_path(banks)
-    chan4_model, chan = chan_main_path(banks['float32'])
+    chan4_model, chan = chan_main_path(banks)
 
     # 6. times: each kernel on the main path's draws (the flat-complex
-    # ones on the se full mix, the first of its three calls)
+    # ones on the full mix, the se triple on the same draws); then the
+    # time of a launch of PyTorch's spin kernel for 0 cycles, an empty
+    # kernel, timed the same way: a floor under the shortest kernels
     timing = {}
-    for flat, fn, plain, names in (
-            (False, synthesize_magnitude, synthesize_magnitude_plain,
+    for outputs, fn, plain, names in (
+            (0, synthesize_magnitude, synthesize_magnitude_plain,
              {dt: KERNELS[dt][0] for dt in KERNELS}),
-            (True, synthesize_flat, synthesize_flat_plain, FLAT_KERNELS)):
+            (1, synthesize_flat, synthesize_flat_plain, FLAT_KERNELS),
+            (3, synthesize_se, synthesize_se_plain, SE_KERNELS)):
         for name, dt in FLAT_DTYPES.items():
             args = [mixture.synth_args(banks[name], d) for d in main_draws]
             kernel_ms, plain_ms = [], []
@@ -1339,7 +1409,8 @@ def main(argv) -> int:
                 else:
                     plain_ms.append(gpu_ms(plain, args, 16))
             work = [synth_work(d, banks[name].backgrounds.flat.shape[-1], dt,
-                               flat) for d in main_draws]
+                               outputs > 0, max(outputs, 1))
+                    for d in main_draws]
             nbytes = sum(w[0] for w in work) / len(work)
             flops = sum(w[1] for w in work) / len(work)
             bound_ms = max(nbytes / HBM_BYTES_PER_S,
@@ -1352,6 +1423,8 @@ def main(argv) -> int:
             log(f'{names[dt]}: kernel {kernel_ms} ms, plain {plain_ms} ms, '
                 f'{nbytes / 1e6:.3f} MB and {flops / 1e9:.4f} GFLOP per '
                 f'call, bound {bound_ms * 1e3:.3f} us')
+    empty_ms = [gpu_ms(torch.cuda._sleep, [(0,)], 256) for _ in range(2)]
+    log(f'empty kernel launch: {empty_ms} ms')
     # the mel kernels on the main path's draws with training masks; bounds
     # over the band's columns and, beside them, over all columns
     mel_fn = FeatureFn(Config(model_type='vad', v=9), device=dev,
@@ -1466,6 +1539,7 @@ def main(argv) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log('STEP ' + json.dumps({
         'step_ms': step_ms, 'pipeline_ms': pipe_ms, 'model_step_ms': model_ms,
+        'empty_launch_ms': empty_ms,
         'banks_step_ms': bank_step_ms, 'banks_pipeline_ms': bank_pipe_ms,
         'batch': cfg.batch_size,
         'n_frame': cfg.n_frame, 'train_loss': logs['loss'],
@@ -1473,8 +1547,8 @@ def main(argv) -> int:
     log('SE ' + json.dumps({**{k: v for k, v in se.items()
                                 if k != 'se_launches'}, **se_ref,
                              'card': smi}))
-    log('MEL ' + json.dumps({**{k: v for k, v in mel.items()
-                                 if k != 'mel_launches'}, **chan, **mel_ref,
+    log('MEL ' + json.dumps({**{k: v for k, v in {**mel, **chan}.items()
+                                 if not k.endswith('launches')}, **mel_ref,
                               'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
                              if not k.endswith('launches')}))
@@ -1482,11 +1556,13 @@ def main(argv) -> int:
     runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
             'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
             'synth_mag_int8': (cli['int8_launches'], cli['int8_batches']),
-            'synth_flat_f32': (se['se_launches'], se['se_batches']),
-            'synth_flat_bf16': (cli['se_bf16_launches'],
-                                cli['se_cli_batches']),
-            'synth_flat_int8': (cli['se_int8_launches'],
-                                cli['se_cli_batches']),
+            'synth_flat_f32': (chan['chan_launches'][4], 2),
+            'synth_flat_bf16': (chan['chan_launches'][3], 2),
+            'synth_flat_int8': (cli['chan3_launches'],
+                                cli['chan3_cli_batches']),
+            'synth_se_f32': (se['se_launches'], se['se_batches']),
+            'synth_se_bf16': (cli['se_bf16_launches'], cli['se_cli_batches']),
+            'synth_se_int8': (cli['se_int8_launches'], cli['se_cli_batches']),
             **{k: (mel['mel_launches'][run], n) for k, run, n in (
                 ('synth_mel_f32', 'v9_float32', TRAIN_STEPS + VAL_STEPS),
                 ('synth_mel_bf16', 'v9_bfloat16', 2),
