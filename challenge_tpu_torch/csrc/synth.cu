@@ -11,8 +11,8 @@
 // synth_flat_int8). The se v9 targets call B2 three times a batch on the
 // TPU (challenge_tpu/data/mixture.py:493-527); synth_se_f32, synth_se_bf16
 // and synth_se_int8 compute the three windows in one launch. The fourth
-// mode, the fused mel epilogue (B4), is synth_mel.cu; the slot table is
-// shared with it (synth_common.cuh).
+// mode, the fused mel epilogue (B4), is synth_mel.cu; the slot table and
+// the opt-in to large shared memory are shared with it (synth_common.cuh).
 //
 // What it computes, per sample b and window row t in [0, n_frame):
 //   acc  = float(bg[bidx[b], boff[b] + t, :])               (flat row, F cols)
@@ -102,7 +102,6 @@ using synth::kMaxSlots;
 
 constexpr int kMaxThreads = 1024;         // one column pair a thread
 constexpr long long kMaxSmem = 232448;    // a block's opt-in maximum
-constexpr int kMaxDevices = 64;
 
 enum Epilogue { kMag, kFlat, kTriple };
 
@@ -276,18 +275,9 @@ int launch(const synth::Sources<T>& src, Out* out, Out* out_noise,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto kernel = synth_kernel<T, Out, kScaled, kEpi>;
-  // above 48 KB only after opting in, once per device and size
-  static long long opted[kMaxDevices] = {};
-  int dev = 0;
-  int err = static_cast<int>(cudaGetDevice(&dev));
+  static long long opted[synth::kMaxDevices] = {};
+  const int err = synth::allow_smem(kernel, smem, opted);
   if (err != 0) return err;
-  if (smem > 48 * 1024 && (dev >= kMaxDevices || opted[dev] < smem)) {
-    err = static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem)));
-    if (err != 0) return err;
-    if (dev < kMaxDevices) opted[dev] = smem;
-  }
   const dim3 grid((n_frame + kRows - 1) / kRows, batch);
   const int threads = (half + 31) / 32 * 32;
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(

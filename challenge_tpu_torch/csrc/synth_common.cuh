@@ -79,44 +79,71 @@ struct Sources {
   const float* bgscale;   // [batch], int8 banks only
 };
 
-// Called by the 32 lanes of one warp: lane k reads slot k of sample b (its
-// weight, shift, length and item, all four loads in flight at once), and
-// the active slots (w != 0) whose shifted rows reach the tile [t0, t1) are
-// kept in slot order, each at the count of kept slots below it (a ballot
-// and a prefix count). Lengths past the bank's rows are clamped to them.
+// Slot k of one sample as lane k of a warp holds it between load_slot and
+// keep_slots.
 template <typename T>
-__device__ __forceinline__ void gather_slots(const Sources<T>& src, int b,
-                                             int t0, int t1, Slots<T>& s) {
+struct SlotLoad {
+  const T* clip;
+  int shift, len;
+  float w;
+  bool valid;        // k < n_v + n_x
+};
+
+// Lane k of a warp: start the loads of slot k of sample b (its weight,
+// shift, length and item, all in flight at once). Lengths past the bank's
+// rows are clamped to them.
+template <typename T>
+__device__ __forceinline__ SlotLoad<T> load_slot(const Sources<T>& src,
+                                                 int b) {
   const int k = threadIdx.x & 31;
   const bool voice = k < src.n_v;
-  bool keep = false;
-  const T* clip = nullptr;
-  int shift = 0, len = 0;
-  float w = 0.0f;
-  if (k < src.n_v + src.n_x) {
+  SlotLoad<T> l{nullptr, 0, 0, 0.0f, k < src.n_v + src.n_x};
+  if (l.valid) {
     const int i = voice ? b * src.n_v + k : b * src.n_x + (k - src.n_v);
-    w = voice ? src.vw[i] : src.nw[i];
-    shift = voice ? src.vshift[i] : src.nshift[i];
-    len = min(voice ? src.vlen[i] : src.nlen[i],
-              voice ? src.v_rows : src.n_rows);
+    l.w = voice ? src.vw[i] : src.nw[i];
+    l.shift = voice ? src.vshift[i] : src.nshift[i];
+    l.len = min(voice ? src.vlen[i] : src.nlen[i],
+                voice ? src.v_rows : src.n_rows);
     const long long item = voice ? src.vidx[i] : src.nidx[i];
-    clip = voice ? src.vbank + item * src.v_stride
-                 : src.nbank + item * src.n_stride;
-    keep = w != 0.0f && shift + len > t0 && shift < t1;
+    l.clip = voice ? src.vbank + item * src.v_stride
+                   : src.nbank + item * src.n_stride;
   }
+  return l;
+}
+
+// The 32 lanes of one warp, each with its load_slot: the active slots
+// (w != 0) whose shifted rows reach the tile [t0, t1) are kept in slot
+// order, each at the count of kept slots below it (a ballot and a prefix
+// count).
+template <typename T>
+__device__ __forceinline__ void keep_slots(const SlotLoad<T>& l,
+                                           const Sources<T>& src, int t0,
+                                           int t1, Slots<T>& s) {
+  const int k = threadIdx.x & 31;
+  const bool keep = l.valid && l.w != 0.0f && l.shift + l.len > t0
+                    && l.shift < t1;
   const unsigned kept = __ballot_sync(0xffffffffu, keep);
   if (keep) {
     const int at = __popc(kept & ((1u << k) - 1u));
-    s.clip[at] = clip;
-    s.shift[at] = shift;
-    s.len[at] = len;
-    s.w[at] = w;
+    s.clip[at] = l.clip;
+    s.shift[at] = l.shift;
+    s.len[at] = l.len;
+    s.w[at] = l.w;
   }
   if (k == 0) {
     s.n = __popc(kept);
     s.nv = __popc(kept & (src.n_v >= 32 ? 0xffffffffu
                                         : (1u << src.n_v) - 1u));
   }
+}
+
+// Called by the 32 lanes of one warp: lane k reads slot k of sample b, and
+// the active slots that reach the tile [t0, t1) are kept in slot order
+// (load_slot, then keep_slots).
+template <typename T>
+__device__ __forceinline__ void gather_slots(const Sources<T>& src, int b,
+                                             int t0, int t1, Slots<T>& s) {
+  keep_slots(load_slot(src, b), src, t0, t1, s);
 }
 
 // ------------------------------------------------- 16-byte staged copies
@@ -157,6 +184,86 @@ __device__ __forceinline__ void stage_range(char* stage, const void* s,
   }
 }
 
+// ------------------------------------------ bulk copies on an mbarrier
+
+// One thread: make the mbarrier at `bar` (shared memory) expect one
+// arrival a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(a)
+               : "memory");
+}
+
+// After mbar_init, before the barrier's first use by a bulk copy.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Wait until the phase of parity `parity` of the mbarrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" :: "r"(a), "r"(parity) : "memory");
+}
+
+// The bytes that bulk_segment moves for a segment of n bytes at g: the
+// 16-byte chunks of [g rounded down to 16, g + n rounded up to 16).
+__device__ __forceinline__ int bulk_bytes(uintptr_t g, int n) {
+  return static_cast<int>(((g + n + 15) & ~uintptr_t(15))
+                          - (g & ~uintptr_t(15)));
+}
+
+// The 32 lanes of one warp: make the mbarrier `bar` expect the bytes that
+// bulk_segment moves for n_seg segments of n bytes, segment q at s + q *
+// stride, and arrive on it (its one arrival a phase). The copies may be
+// issued by other warps, before or after.
+__device__ __forceinline__ void bulk_expect(const void* s, long long stride,
+                                            int n_seg, int n,
+                                            uint64_t* bar) {
+  const int lane = threadIdx.x & 31;
+  int bytes = 0;
+  for (int q = lane; q < n_seg; q += 32) {
+    bytes += bulk_bytes(reinterpret_cast<uintptr_t>(s) + q * stride, n);
+  }
+  bytes = __reduce_add_sync(0xffffffffu, bytes);
+  if (lane == 0) {
+    const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+        :: "r"(b), "r"(bytes) : "memory");
+  }
+}
+
+// One thread: copy the n bytes at g into `slot` (16-byte aligned, at
+// least stage_bytes(n) long) with one cp.async.bulk of the 16-byte chunks
+// of [g rounded down to 16, g + n rounded up to 16), completing on the
+// mbarrier `bar`: element 0 lands (g & 15) bytes into the slot, as
+// stage_range lays out a range. The caller makes sure that the rounded
+// range stays inside the allocation (no allocation ends within 15 bytes
+// after g + n).
+__device__ __forceinline__ void bulk_segment(char* slot, const void* g,
+                                             int n, uint64_t* bar) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(slot))),
+         "l"(a & ~uintptr_t(15)), "r"(bulk_bytes(a, n)),
+         "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
+// Order this thread's generic-proxy accesses to shared memory before
+// later bulk copies into the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // All threads of the block: write the n elements staged at `staged` (laid
 // out as stage_range lays out a range that starts at dst: element 0 at
 // (dst & 15) bytes into the 16-byte aligned `staged`) to dst, with 16-byte
@@ -184,6 +291,57 @@ __device__ __forceinline__ void store_range(Out* dst, const char* staged,
     *reinterpret_cast<int4*>(g) =
         *reinterpret_cast<const int4*>(staged + (g - a0));
   }
+}
+
+// Host: let `kernel` take `smem` bytes of dynamic shared memory. Above
+// 48 KB a kernel must opt in, once per device and size; `opted` is the
+// caller's record of it per device, a static of the launching template
+// instance, so that each kernel instance keeps its own.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+int allow_smem(Kernel* kernel, long long smem,
+               long long (&opted)[kMaxDevices]) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err != 0) return err;
+  if (dev < kMaxDevices && opted[dev] >= smem) return 0;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err == 0 && dev < kMaxDevices) opted[dev] = smem;
+  return err;
+}
+
+// Host: `*blocks` = as many blocks of `threads` threads and `smem` bytes of
+// dynamic shared memory as fit on the current device at once (at least
+// one a SM). `grids` is the caller's record per device, as `opted` above:
+// the count is worked out once per device and size, not per launch.
+struct Grid {
+  long long smem;
+  int blocks;
+};
+template <typename Kernel>
+int persistent_grid(Kernel* kernel, int threads, long long smem,
+                    Grid (&grids)[kMaxDevices], int* blocks) {
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err != 0) return err;
+  if (dev < kMaxDevices && grids[dev].blocks > 0 && grids[dev].smem == smem) {
+    *blocks = grids[dev].blocks;
+    return 0;
+  }
+  int sms = 0, fit = 0;
+  err = static_cast<int>(cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err == 0) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, kernel, threads, static_cast<size_t>(smem)));
+  }
+  if (err != 0) return err;
+  *blocks = sms * (fit > 0 ? fit : 1);
+  if (dev < kMaxDevices) grids[dev] = Grid{smem, *blocks};
+  return 0;
 }
 
 // The IEEE float32 magnitude of a pair (sqrtf without --use_fast_math).

@@ -57,6 +57,7 @@ MEL_KERNELS = {torch.float32: 'synth_mel_f32',
                torch.int8: 'synth_mel_int8'}      # float32 outputs
 MAX_SLOTS = 32      # voice + noise slots per sample the kernel takes
 MAX_PAIRS = 1024    # column pairs (m, F/2 + m) per row synth.cu takes
+MEL_MAX_COLS = 256  # band columns (chans x n_f) synth_mel.cu takes
 
 
 def _sources(vbank, vidx, vshift, vw, nbank, nidx, nshift, nw, vlens, nlens):
@@ -253,6 +254,24 @@ def _check_aligned(name, x) -> None:
         raise ValueError(f'{name}: data_ptr() is not 16-byte aligned')
 
 
+def check_mel_shape(chans: int, f_lo: int, n_f: int, freq: int,
+                    element_size: int) -> None:
+    """Raise ValueError for a shape that kernel B4 refuses: ``chans``
+    channel planes of ``freq`` rows each, a band of rows ``f_lo ..
+    f_lo + n_f - 1`` and banks of ``element_size`` bytes an element. Its
+    lanes split a warp evenly over the channels, hold at most
+    ``MEL_MAX_COLS`` band columns a tile row, and copy each band segment as
+    the 16-byte chunks around it, which must stay inside the plane."""
+    if chans < 1 or chans & (chans - 1) or chans > 16 \
+            or chans * n_f > MEL_MAX_COLS:
+        raise ValueError(f'{chans} channels x {n_f} band rows: the '
+                         f'kernel takes 1, 2, 4, 8 or 16 channels and at '
+                         f'most {MEL_MAX_COLS} band columns')
+    if (freq - f_lo - n_f) * element_size < 15:
+        raise ValueError('band: the kernel copies 16-byte chunks, so the '
+                         'band must end 15 bytes before each plane does')
+
+
 def _check(name, x, dtype, shape=None, device=None):
     if x.dtype != dtype:
         raise TypeError(f'{name}: expected {dtype}, got {x.dtype}')
@@ -442,6 +461,7 @@ def synthesize_mel(n_frame: int, bgbank, bidx, boff,
         band = mel_band(melm)
     if band.off.numel() != n_mels + 1 or band.w.device != device:
         raise ValueError('band: not the mel_band of melm on its device')
+    check_mel_shape(chans, band.f_lo, band.n_f, freq, bgbank.element_size())
     mel = torch.empty((b, n_mels, n_frame, chans), dtype=torch.float32,
                       device=device)
     mm = torch.empty((b, 2), dtype=torch.float32, device=device)

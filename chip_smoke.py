@@ -50,7 +50,9 @@ without the result line:
    on the main path's draws (vad v9, batch 12, 512 frames) with training
    masks, eval masks (all ones) and the filter columns, on batch 1, on a
    sample whose time mask zeroes every frame (its min and max must be 0),
-   and on the adversarial cases;
+   on the adversarial cases, and on draws at 40 and 128 mel bins (each
+   with its own band), 500 frames (a ragged last row tile) and batch 48
+   (more row tiles than the card holds blocks at once);
 4. check the port on the card against the port on the CPU on a small
    input: synthesis bit for bit, log-mel within 1e-5 mean abs error,
    labels exact, and one training-mode forward and loss within 1e-5
@@ -477,11 +479,13 @@ def mel_checks(dev, banks, main_draws, cases) -> dict:
     """Phase 3d: each mel kernel against its plain version, mel and
     min/max, on the main path's draws with training masks, eval masks
     (all ones) and the filter columns, on batch 1, on a sample whose time
-    mask zeroes every frame, and on the adversarial cases (rounded or
-    quantized for the low-precision banks)."""
+    mask zeroes every frame, on the adversarial cases (rounded or
+    quantized for the low-precision banks), and on draws at 40 and 128
+    mel bins, 500 frames and batch 48."""
     cfg = Config(model_type='vad', v=9, name='filter')
     fn = FeatureFn(cfg, device=dev, fused_mel=True)
     gen = torch.Generator(device=dev).manual_seed(2)
+    draw_gen = torch.Generator(device=dev).manual_seed(4)
     errs = {}
     for name, dt in FLAT_DTYPES.items():
         e = dict.fromkeys(('main_train', 'main_eval', 'main_filter',
@@ -515,6 +519,21 @@ def mel_checks(dev, banks, main_draws, cases) -> dict:
                                         args[1].shape[-1] // 2, i, dev,
                                         zero_sample=0)
             e[case] = mel_diff(args, fn.melm, tmask, fmask)
+        # the design's edges: 40 mel bins (up to 11 band rows a bin) and
+        # 128, each with its own band; 500 frames, not a multiple of the
+        # row tile; 48 samples, more work items than one wave of blocks
+        for case, kw in (('mels40', dict(n_mels=40)),
+                         ('mels128', dict(n_mels=128)),
+                         ('frames500', dict(n_frame=500)),
+                         ('batch48', dict(batch_size=48))):
+            c = Config(model_type='vad', v=9, **kw)
+            f = FeatureFn(c, device=dev, fused_mel=True)
+            d = mixture.draw(draw_gen, banks['float32'], c.batch_size,
+                             c.n_frame, max_voices=c.max_voices,
+                             max_noises=c.max_noises, snr=c.snr)
+            tmask, fmask = f.masks(gen)
+            e[case] = mel_diff(mixture.synth_args(banks[name], d), f.melm,
+                               tmask, fmask.repeat(1, 2))
         errs[MEL_KERNELS[dt]] = e
     return errs
 

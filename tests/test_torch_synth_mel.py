@@ -36,12 +36,23 @@ from challenge_tpu_torch.data import mixture
 from challenge_tpu_torch.data.pipeline import FeatureFn, build_banks
 from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.ops.mel import mel_filterbank
+from challenge_tpu_torch.ops import synth
 from challenge_tpu_torch.ops.synth import (
     mel_band, synthesize_mel, synthesize_mel_plain)
 
-CASES = ['random', 'long_then_short', 'edges']
 DTYPES = ['float32', 'bfloat16', 'int8']
 FREQ, N_MELS = 32, 8          # the cases' flat width 128 is 4 planes of 32
+# case -> (synth_case, mel bins, frames cut off its n_frame): the cases at
+# N_MELS, then at 40 and 128 bins (over FREQ rows many bins are empty) and
+# at 4 (bins of up to 9 rows), each at an n_frame that is not a multiple
+# of the kernel's row tile
+SHAPES = {'random': ('random', N_MELS, 0),
+          'long_then_short': ('long_then_short', N_MELS, 0),
+          'edges': ('edges', N_MELS, 0),
+          'random_mels40_ragged': ('random', 40, 4),
+          'edges_mels128_ragged': ('edges', 128, 3),
+          'long_then_short_mels4_ragged': ('long_then_short', 4, 5)}
+CASES = list(SHAPES)
 
 
 def _masks(b, nf, seed, zero_sample=False):
@@ -55,31 +66,39 @@ def _masks(b, nf, seed, zero_sample=False):
     return tmask, fmask
 
 
-def _melm():
-    return mel_filterbank(N_MELS, FREQ)
+def _melm(n_mels=N_MELS):
+    return mel_filterbank(n_mels, FREQ)
 
 
-def _jax_mel(nf, a, tmask, fmask):
-    """JAX's kernel in mel mode: the block-diagonal [2 FREQ, 2 N_MELS]
+def _case(name, dtype):
+    """(n_frame, JAX's arrays, the oracle's arrays, mel bins) of a case of
+    SHAPES in one bank dtype."""
+    base, n_mels, cut = SHAPES[name]
+    nf, a, oracle = bank_case(base, dtype)
+    return nf - cut, a, oracle, n_mels
+
+
+def _jax_mel(nf, a, tmask, fmask, n_mels=N_MELS):
+    """JAX's kernel in mel mode: the block-diagonal [2 FREQ, 2 n_mels]
     matrix (row c * FREQ + f -> column m * 2 + c), then the mel reshaped to
-    the port's [B, N_MELS, nf, 2] and mm's lanes 0 and 1."""
-    big = np.zeros((2 * FREQ, N_MELS, 2), np.float32)
+    the port's [B, n_mels, nf, 2] and mm's lanes 0 and 1."""
+    big = np.zeros((2 * FREQ, n_mels, 2), np.float32)
     for c in range(2):
-        big[c * FREQ:(c + 1) * FREQ, :, c] = _melm()
+        big[c * FREQ:(c + 1) * FREQ, :, c] = _melm(n_mels)
     mel, mm = synthesize_windows(
         nf, **a, mel=(big.reshape(2 * FREQ, -1), tmask.T, fmask),
         interpret=True)
-    mel = np.asarray(mel).reshape(-1, nf, N_MELS, 2).transpose(0, 2, 1, 3)
+    mel = np.asarray(mel).reshape(-1, nf, n_mels, 2).transpose(0, 2, 1, 3)
     return mel, np.asarray(mm)[:, 0, :2]
 
 
-def _oracle(nf, oracle, tmask, fmask):
+def _oracle(nf, oracle, tmask, fmask, n_mels=N_MELS):
     """The kernel's function in numpy float32, every product and sum
     rounded, the mel sum over the nonzero rows in increasing order."""
     mag = numpy_ordered_sum(nf, oracle, fma=False) * fmask[:, None, :]
     x = mag.reshape(mag.shape[0], nf, 2, FREQ)
-    m = _melm()
-    mel = np.zeros(x.shape[:3] + (N_MELS,), np.float32)
+    m = _melm(n_mels)
+    mel = np.zeros(x.shape[:3] + (n_mels,), np.float32)
     for f in np.flatnonzero(m.any(axis=1)):
         mel = mel + x[..., f, None] * m[f]
     mel = (mel * tmask[:, :, None, None]).transpose(0, 3, 1, 2)
@@ -87,9 +106,9 @@ def _oracle(nf, oracle, tmask, fmask):
                           mel.max(axis=(1, 2, 3))], 1)
 
 
-def _port(nf, a, tmask, fmask):
+def _port(nf, a, tmask, fmask, n_mels=N_MELS):
     mel, mm = synthesize_mel_plain(
-        nf, **to_torch(a), melm=torch.from_numpy(_melm()),
+        nf, **to_torch(a), melm=torch.from_numpy(_melm(n_mels)),
         tmask=torch.from_numpy(tmask), fmask=torch.from_numpy(fmask))
     return mel.numpy(), mm.numpy()
 
@@ -97,12 +116,12 @@ def _port(nf, a, tmask, fmask):
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('name', CASES)
 def test_mel_plain_is_the_rounded_ordered_sum(name, dtype):
-    nf, a, oracle = bank_case(name, dtype)
+    nf, a, oracle, n_mels = _case(name, dtype)
     b = a['bidx'].shape[0]
     tmask, fmask = _masks(b, nf, 1, zero_sample=True)
-    mel, mm = _port(nf, a, tmask, fmask)
-    ref_mel, ref_mm = _oracle(nf, oracle, tmask, fmask)
-    assert mel.shape == (b, N_MELS, nf, 2) and mel.dtype == np.float32
+    mel, mm = _port(nf, a, tmask, fmask, n_mels)
+    ref_mel, ref_mm = _oracle(nf, oracle, tmask, fmask, n_mels)
+    assert mel.shape == (b, n_mels, nf, 2) and mel.dtype == np.float32
     np.testing.assert_array_equal(mel, ref_mel)
     np.testing.assert_array_equal(mm, ref_mm)
     # the sample whose frames are all masked: min = max = 0
@@ -112,10 +131,10 @@ def test_mel_plain_is_the_rounded_ordered_sum(name, dtype):
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('name', CASES)
 def test_mel_plain_matches_pallas_mel_mode(name, dtype):
-    nf, a, _ = bank_case(name, dtype)
+    nf, a, _, n_mels = _case(name, dtype)
     tmask, fmask = _masks(a['bidx'].shape[0], nf, 2)
-    ref_mel, ref_mm = _jax_mel(nf, a, tmask, fmask)
-    mel, mm = _port(nf, a, tmask, fmask)
+    ref_mel, ref_mm = _jax_mel(nf, a, tmask, fmask, n_mels)
+    mel, mm = _port(nf, a, tmask, fmask, n_mels)
     assert mel.shape == ref_mel.shape
     np.testing.assert_allclose(mel, ref_mel, rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(mm, ref_mm, rtol=1e-5, atol=1e-7)
@@ -182,6 +201,54 @@ def test_mel_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
         synthesize_mel(nf, **{k: v.to('meta') for k, v in t.items()}, **kw)
     band = mel_band(kw['melm'])
     assert torch.equal(synthesize_mel(nf, **t, **kw, band=band)[0], mel)
+
+
+def test_mel_argtypes_match_the_kernel_signature():
+    """The ctypes argument types of the mel entry points, against the C
+    parameter list of csrc/synth_mel.cu's MEL_ENTRY: a pointer for each
+    pointer, a 64-bit int for each long long, a 32-bit int for each int."""
+    import ctypes
+    import re
+    text = (cuda.CSRC / 'synth_mel.cu').read_text()
+    params = re.search(r'extern "C" int NAME\((.*?)\) \{', text,
+                       re.S).group(1).replace('\\', ' ').split(',')
+    want = [ctypes.c_void_p if '*' in p else
+            ctypes.c_longlong if 'long long' in p else ctypes.c_int
+            for p in params]
+    assert all('*' in p or re.search(r'\b(long long|int)\b', p)
+               for p in params)
+    assert synth._MEL_ARGTYPES == want
+
+
+@pytest.mark.parametrize('n_mels', [40, 80, 128])
+def test_mel_shape_takes_the_model_bands(n_mels):
+    """The bands of the sj_train filterbanks (257 rows a plane, 2 planes)
+    fit the kernel in every bank dtype."""
+    band = mel_band(torch.from_numpy(mel_filterbank(n_mels, 257)))
+    assert (band.f_lo, band.n_f) == (4, 118)
+    for element_size in (1, 2, 4):
+        synth.check_mel_shape(2, band.f_lo, band.n_f, 257, element_size)
+
+
+@pytest.mark.parametrize('chans, f_lo, n_f, freq, element_size, refused', [
+    (16, 0, 16, 64, 4, None),             # 256 band columns, the most
+    (1, 0, 241, 257, 1, None),            # 16 bytes after the band
+    (4, 10, 64, 128, 2, None),
+    (3, 4, 10, 64, 4, 'channels'),        # not a power of two
+    (32, 0, 4, 64, 4, 'channels'),        # more than 16
+    (0, 0, 4, 64, 4, 'channels'),
+    (2, 4, 129, 257, 4, 'channels'),      # 258 band columns
+    (1, 0, 243, 257, 1, '16-byte'),       # 14 bytes after the band
+    (1, 100, 150, 257, 2, '16-byte'),     # 14 bytes
+    (1, 100, 150, 257, 4, None),          # 28 bytes
+])
+def test_mel_shape_refuses_what_the_kernel_cannot_take(
+        chans, f_lo, n_f, freq, element_size, refused):
+    if refused is None:
+        synth.check_mel_shape(chans, f_lo, n_f, freq, element_size)
+    else:
+        with pytest.raises(ValueError, match=refused):
+            synth.check_mel_shape(chans, f_lo, n_f, freq, element_size)
 
 
 # ------------------------------------------------- the fused FeatureFn path
