@@ -25,8 +25,13 @@ Reference quirks kept, as in JAX (infer.py:10-17):
   n_chan > 3 merges with a fresh factor per clip.
 The merge factor of clip i (in sorted path order) comes from a CPU
 ``torch.Generator`` seeded with i: deterministic across runs and devices,
-but not JAX's stream, which folds i into ``PRNGKey(0)`` (ROADMAP C). The
-vad and se v9 families are ported; the eff family waits for ROADMAP A12.
+but not JAX's stream, which folds i into ``PRNGKey(0)`` (ROADMAP C).
+Upsampling follows the version, as in JAX: v3, v6, v7, v8 and v9 repeat
+each output frame 32 times, the others are used as they come out. eff v1
+outputs every frame; eff v5 keeps its coarse n_frame * 256 // 16000
+frames a window, and the overlap-add leaves each window's other frames
+at 0 / 0 (JAX's quirk too, infer.py:87-92), so its grid is mostly
+empty.
 """
 
 from __future__ import annotations
@@ -106,9 +111,6 @@ def spec_to_scores(config, module, spec, overlap_hop: int = 512,
     (T' = min(T, frames the windows cover)), before the 0.5 threshold
     (counterpart: the body of ``_make_spec_to_grid``, infer.py:138-199,
     with ``n_valid=None``). ``clip_index`` seeds the n_chan > 3 merge."""
-    if config.model_type == 'eff':
-        raise NotImplementedError(
-            'evaluating the eff family is not ported yet (ROADMAP A12)')
     spec = channel_map(config, spec, clip_index)
     n_frame = config.n_frame
     se = config.model_type == 'se'

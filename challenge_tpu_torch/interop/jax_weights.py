@@ -1,19 +1,24 @@
-"""flax variables -> the port's ``state_dict`` (VAD and se families).
+"""flax variables -> the port's ``state_dict`` (vad, se and eff families).
 
 Takes the JAX package's variables as nested mappings of numpy arrays
 (``{'params': ..., 'batch_stats': ...}``, e.g. after ``jax.device_get``)
 and imports neither JAX nor ``challenge_tpu``. Conv kernels go from HWIO to
-OIHW, Dense kernels from [in, out] to [out, in]; BatchNorm scale/bias/mean/
-var become weight/bias/running_mean/running_var. A ConvTranspose kernel
-[kh, kw, in, out] becomes [in, out, kh, kw] flipped in both spatial dims:
+OIHW (a 1-D one from [k, in, out] to [out, in, k]), Dense kernels from
+[in, out] to [out, in]; BatchNorm scale/bias/mean/var become
+weight/bias/running_mean/running_var. A ConvTranspose kernel
+[*window, in, out] becomes [in, out, *window] flipped along the window:
 flax (``transpose_kernel=False``) applies it unflipped, torch's
-``ConvTranspose2d`` flipped. The se cascade's ``se/...`` and ``vad/...``
+``ConvTranspose`` flipped. The se cascade's ``se/...`` and ``vad/...``
 subtrees map to its ``se.`` and ``vad.`` submodules, the second by the
 VAD rules. vad v7's top-level ``Conv_k`` and ``BatchNorm_k`` are its
 bottlenecks' layers in threes (bottleneck k // 3, layer k % 3). The v9
-BiLSTM's cells keep flax's per-gate leaves (``ii``..``io`` kernels,
-``hi``..``ho`` kernels and biases), so each maps to one Linear of the
-port's ``LSTM``.
+BiLSTM's and the eff heads' BiGRU's cells keep flax's per-gate leaves, so
+each maps to one Linear of the port's ``LSTM`` or ``GRU``.
+
+The eff family's top-level names collide with vad's (its v7 ``Conv_0`` is
+the gate conv, its ``Dense_0`` the first Dense of the head), so it has
+rules of its own, chosen by the presence of ``EfficientNetBackbone_0``.
+Its ``TimeAxisResample`` kernel [T, target] keeps its layout.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch
 
 _BN = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
        'var': 'running_var'}
+_GRU_RULE = (r'BiGRU_0/GRUCell_(\d)/([ih][rzn])/(kernel|bias)',
+             'gru.cells.{0}.gates.{1}')
 _RULES = [
     (r'se/ConvSet_(\d+)/Conv_(\d+)/kernel', 'se.convsets.{0}.convs.{1}'),
     (r'se/ConvSet_(\d+)/BatchNorm_(\d+)/BatchNorm_0/(\w+)',
@@ -42,7 +49,29 @@ _RULES = [
      lambda k, _: f'bottlenecks.{int(k) // 3}.bns.{int(k) % 3}'),
     (r'BiLSTM_0/OptimizedLSTMCell_(\d)/([ih][ifgo])/(kernel|bias)',
      'lstm.cells.{0}.gates.{1}'),
+    _GRU_RULE,
     (r'Dense_0/(kernel|bias)', 'td'),
+    (r'FullyConnectedLayer_(\d+)/Dense_0/(kernel|bias)', 'fcs.{0}.dense'),
+    (r'FullyConnectedLayer_(\d+)/BatchNorm_0/BatchNorm_0/(\w+)',
+     'fcs.{0}.bn'),
+]
+_EFF_RULES = [
+    (r'EfficientNetBackbone_0/Conv_0/kernel', 'backbone.stem'),
+    (r'EfficientNetBackbone_0/BatchNorm_0/BatchNorm_0/(\w+)',
+     'backbone.stem_bn'),
+    (r'EfficientNetBackbone_0/Conv_1/kernel', 'backbone.head'),
+    (r'EfficientNetBackbone_0/BatchNorm_1/BatchNorm_0/(\w+)',
+     'backbone.head_bn'),
+    (r'EfficientNetBackbone_0/MBConv_(\d+)/Conv_(\d+)/(kernel|bias)',
+     'backbone.blocks.{0}.convs.{1}'),
+    (r'EfficientNetBackbone_0/MBConv_(\d+)/BatchNorm_(\d+)/BatchNorm_0/'
+     r'(\w+)', 'backbone.blocks.{0}.bns.{1}'),
+    (r'Dense_(\d+)/(kernel|bias)', 'denses.{0}'),
+    (r'BatchNorm_(\d+)/BatchNorm_0/(\w+)', 'bns.{0}'),
+    (r'ConvTranspose_(\d+)/(kernel|bias)', 'ups.{0}'),
+    (r'TimeAxisResample_0/kernel', 'resample'),
+    _GRU_RULE,
+    (r'Conv_0/(kernel|bias)', 'gate'),
     (r'FullyConnectedLayer_(\d+)/Dense_0/(kernel|bias)', 'fcs.{0}.dense'),
     (r'FullyConnectedLayer_(\d+)/BatchNorm_0/BatchNorm_0/(\w+)',
      'fcs.{0}.bn'),
@@ -57,22 +86,25 @@ def _leaves(tree, prefix=()):
             yield prefix + (str(k),), np.asarray(v)
 
 
-def _torch_entry(path: str, leaf: str, arr: np.ndarray):
+def _torch_entry(path: str, leaf: str, arr: np.ndarray, rules):
     prefix = ''
     if path.startswith('vad/'):                 # the se cascade's head
         prefix, path = 'vad.', path[len('vad/'):]
-    for pattern, target in _RULES:
+    for pattern, target in rules:
         m = re.fullmatch(pattern, path)
         if m is None:
             continue
         module = prefix + (target(*m.groups()) if callable(target)
                            else target.format(*m.groups()))
-        if leaf == 'kernel' and 'ConvTranspose' in path:
-            return f'{module}.weight', arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if leaf == 'kernel':
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            nd, window = arr.ndim, tuple(range(arr.ndim - 2))
+            if 'ConvTranspose' in path:      # [in, out, *window], flipped
+                arr = np.flip(arr, window).transpose(nd - 2, nd - 1, *window)
+            elif 'TimeAxisResample' not in path:
+                # [*window, in, out] -> [out, in, *window]; Dense [out, in]
+                arr = arr.transpose(nd - 1, nd - 2, *window)
             return f'{module}.weight', arr
-        if '.bn' in module:
+        if 'BatchNorm' in path:
             return f'{module}.{_BN[leaf]}', arr
         return f'{module}.{leaf}', arr
     raise KeyError(f'no port counterpart for flax variable '
@@ -82,11 +114,15 @@ def _torch_entry(path: str, leaf: str, arr: np.ndarray):
 def flax_to_state_dict(variables: Mapping) -> dict:
     """Every leaf of ``variables`` as a ``state_dict`` entry (float32 CPU
     tensors). Collections ('params', 'batch_stats') are optional, so an
-    optimizer moment tree passed as ``{'params': tree}`` maps too."""
+    optimizer moment tree passed as ``{'params': tree}`` maps too. A tree
+    with ``EfficientNetBackbone_0`` maps by the eff family's rules."""
+    trees = [variables.get(c, {}) for c in ('params', 'batch_stats')]
+    eff = any('EfficientNetBackbone_0' in t for t in trees)
+    rules = _EFF_RULES if eff else _RULES
     out = {}
-    for collection in ('params', 'batch_stats'):
-        for path, arr in _leaves(variables.get(collection, {})):
-            key, arr = _torch_entry('/'.join(path), path[-1], arr)
+    for tree in trees:
+        for path, arr in _leaves(tree):
+            key, arr = _torch_entry('/'.join(path), path[-1], arr, rules)
             out[key] = torch.from_numpy(
                 np.array(arr, dtype=np.float32, order='C'))
     return out

@@ -12,7 +12,7 @@ head's Dense layers and BatchNorms take [B, T, D]. Keras parity:
   (``ceil_mode=True``): 5 -> 3.
 * Weights start from flax's defaults: LeCun normal (truncated) kernels,
   zero biases, BN scale 1 and bias 0, running mean 0 and variance 1; the
-  LSTM's recurrent kernels orthogonal.
+  LSTM's and the GRU's recurrent kernels orthogonal.
 """
 
 from __future__ import annotations
@@ -41,11 +41,11 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 def kernel_fan_in(layer: nn.Module) -> int:
     """flax's LeCun fan-in of a conv or transposed-conv layer's kernel,
-    in * kh * kw (flax keeps both as [kh, kw, in, out]). torch keeps a
-    transposed conv's weight as [in, out, kh, kw], where
-    ``weight[0].numel()`` would be out * kh * kw."""
+    in * (its window's size) (flax keeps both as [*window, in, out]).
+    torch keeps a transposed conv's weight as [in, out, *window], where
+    ``weight[0].numel()`` would be out * (the window's size)."""
     w = layer.weight
-    if isinstance(layer, nn.ConvTranspose2d):
+    if isinstance(layer, (nn.ConvTranspose1d, nn.ConvTranspose2d)):
         return w.shape[0] * w[0, 0].numel()
     return w[0].numel()
 
@@ -222,10 +222,12 @@ class BiLSTM(nn.Module):
     sj_train.py:252). ``cells.0`` and ``cells.1`` are flax's
     ``OptimizedLSTMCell_0`` and ``_1``."""
 
+    cell = LSTM
+
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.cells = nn.ModuleList([LSTM(in_features, features),
-                                    LSTM(in_features, features, True)])
+        self.cells = nn.ModuleList([self.cell(in_features, features),
+                                    self.cell(in_features, features, True)])
 
     def reset_parameters(self, gen=None) -> None:
         for cell in self.cells:
@@ -233,6 +235,66 @@ class BiLSTM(nn.Module):
 
     def forward(self, x):
         return torch.cat([cell(x) for cell in self.cells], dim=-1)
+
+
+class GRU(nn.Module):
+    """One direction of flax's ``GRUCell`` scanned over time, on [B, T, D]
+    (counterpart: ``nn.RNN(nn.GRUCell(H))``). It keeps flax's six leaves,
+    one Linear each: the input kernels ``ir``, ``iz`` and ``in`` (D -> H)
+    with biases, the hidden kernels ``hr`` and ``hz`` (H -> H) without and
+    ``hn`` with one. So four biases are trained, as in flax (torch's
+    ``nn.GRU`` has six). From h = 0:
+    r = sigmoid(x W_ir + b_ir + h W_hr), z = sigmoid(x W_iz + b_iz + h W_hz),
+    n = tanh(x W_in + b_in + r (h W_hn + b_hn)), h' = (1 - z) n + z h.
+    ``reverse`` scans from the last frame and keeps the output in frame
+    order."""
+
+    def __init__(self, in_features: int, features: int,
+                 reverse: bool = False):
+        super().__init__()
+        self.reverse = reverse
+        self.gates = nn.ModuleDict()
+        for g in 'rzn':
+            self.gates['i' + g] = nn.Linear(in_features, features)
+        for g in 'rzn':
+            self.gates['h' + g] = nn.Linear(features, features,
+                                            bias=g == 'n')
+
+    def reset_parameters(self, gen=None) -> None:
+        for g in 'rzn':
+            lin = self.gates['i' + g]
+            lecun_normal_(lin.weight, lin.in_features, gen)
+            nn.init.zeros_(lin.bias)
+            nn.init.orthogonal_(self.gates['h' + g].weight, generator=gen)
+        nn.init.zeros_(self.gates['hn'].bias)
+
+    def forward(self, x):
+        w_i = torch.cat([self.gates['i' + g].weight for g in 'rzn'])
+        b_i = torch.cat([self.gates['i' + g].bias for g in 'rzn'])
+        w_h = torch.cat([self.gates['h' + g].weight for g in 'rzn'])
+        b_hn = self.gates['hn'].bias
+        xw = torch.matmul(x, w_i.T) + b_i                # [B, T, 3H]
+        h = x.new_zeros((x.shape[0], w_h.shape[1]))
+        steps = range(x.shape[1])
+        outs = [None] * x.shape[1]
+        for t in (reversed(steps) if self.reverse else steps):
+            xr, xz, xn = xw[:, t].chunk(3, dim=-1)
+            hr, hz, hn = torch.matmul(h, w_h.T).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * (hn + b_hn))
+            h = (1.0 - z) * n + z * h
+            outs[t] = h
+        return torch.stack(outs, dim=1)
+
+
+class BiGRU(BiLSTM):
+    """Bidirectional GRU, outputs concatenated [forward, backward]
+    (counterpart: ``challenge_tpu/models/layers.py:119-130``; reference:
+    sj_train.py:382-389). ``cells.0`` and ``cells.1`` are flax's
+    ``GRUCell_0`` and ``_1``."""
+
+    cell = GRU
 
 
 def smoothing_pool(x, k: int):

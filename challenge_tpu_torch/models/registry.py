@@ -1,6 +1,6 @@
 """``get_model(config)`` (counterpart: ``challenge_tpu/models/registry.py``;
-reference: sj_train.py:295-403). The vad and se families are ported; the
-EfficientNet-SED family waits for ROADMAP A12."""
+reference: sj_train.py:295-403): the vad, EfficientNet-SED (eff) and se
+families."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from torch import nn
 
 from challenge_tpu_torch.config import Config
 from challenge_tpu_torch.device import resolve_device
+from challenge_tpu_torch.models.effnet import EffNetSED
 from challenge_tpu_torch.models.senet import SECascade
 from challenge_tpu_torch.models.vad import VADModel
 
@@ -23,6 +24,9 @@ class ModelBundle:
     config: Config
     device: torch.device
     multi_output: bool = False        # True for the se triple head
+    # True for the eff family: its training forward takes the generator
+    # of stochastic depth (JAX: needs_dropout_rng)
+    needs_dropout_gen: bool = False
 
     def init(self, seed: int = 0) -> None:
         """Re-draw the module's weights from ``seed``."""
@@ -60,8 +64,16 @@ def get_model(config: Config, device=None, seed: int = 0) -> ModelBundle:
         bundle.init(seed)
         return bundle
     if config.model_type == 'eff':
-        raise NotImplementedError(
-            'the EfficientNet-SED family is not ported yet (ROADMAP A12)')
+        module = EffNetSED(
+            model=config.model, v=config.v, n_classes=config.n_classes,
+            n_layers=config.n_layers, n_dim=config.n_dim,
+            n_frame=config.n_frame, n_mels=config.n_mels,
+            n_chan=config.n_chan).to(device)
+        bundle = ModelBundle(module, (config.n_mels, config.n_frame,
+                                      config.n_chan), config, device,
+                             needs_dropout_gen=True)
+        bundle.init(seed)
+        return bundle
     if config.model_type == 'se':
         if config.v != 9:
             # SECascade builds for any v, but only v9 has a loss in the

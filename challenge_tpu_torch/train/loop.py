@@ -12,6 +12,12 @@ the host does not wait on the card between steps. Two sources of batches:
   (seed, epoch, phase), so a given epoch always draws the same batches.
   The values are those of JAX's fused mode (synthesis, then features, then
   the step), whose one-XLA-program form is a TPU device and is not ported.
+
+A model with stochastic depth (the eff family) trains each epoch with a
+fresh ``torch.Generator`` on its device, seeded by (seed, epoch) on a
+stream of its own (:meth:`TrainLoop.dropout_gen`), so a given epoch drops
+the same samples after a restart, as JAX's per-epoch keys do
+(loop.py:135-142).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import time
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from challenge_tpu_torch.data.mixture import Banks
 from challenge_tpu_torch.data.pipeline import DevicePipeline
@@ -56,6 +63,7 @@ class TrainLoop:
         self.banks, self.val_banks = banks, val_banks
         self.stop_training = False
         self.history: List[dict] = []
+        self.gen = None      # the last training epoch's dropout generator
 
     # Keras-model-like surface used by callbacks
     def get_weights(self) -> dict:
@@ -75,6 +83,16 @@ class TrainLoop:
                               self.config, training,
                               seed=int(seed.generate_state(1)[0]),
                               device=self.bundle.device)
+
+    def dropout_gen(self, epoch: int):
+        """The stochastic-depth generator of a training epoch, or None
+        for a model without stochastic depth."""
+        if not self.bundle.needs_dropout_gen:
+            return None
+        seed = np.random.SeedSequence([self.seed, epoch], spawn_key=(1,))
+        gen = torch.Generator(device=self.bundle.device)
+        gen.manual_seed(int(seed.generate_state(1)[0]))
+        return gen
 
     def _finalize(self, sums, count):
         # a multi-output model logs its class head's metrics under Keras'
@@ -99,9 +117,12 @@ class TrainLoop:
     def run_epoch(self, data_iter, steps: int, training: bool,
                   epoch: int = 0):
         sums, count = {}, 0
+        if training:
+            # kept, so a caller can see how far it was drawn
+            self.gen = self.dropout_gen(epoch)
         for batch in self._batches(data_iter, steps, training, epoch):
             if training:
-                metrics = self.train_step(self.state, batch)
+                metrics = self.train_step(self.state, batch, self.gen)
             else:
                 metrics = self.eval_step(self.state, batch)
             for k, v in metrics.items():

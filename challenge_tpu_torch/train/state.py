@@ -62,9 +62,12 @@ def make_grad_update(bundle: ModelBundle):
     """The train step split at the gradient boundary. Returns
     ``(grad_fn, update_fn)``:
 
-    * ``grad_fn(module, batch) -> (grads, metrics)``: training-mode
-      forward (which moves the BN running statistics), loss and backward
-      over one batch; ``grads`` follow ``module.parameters()``;
+    * ``grad_fn(module, batch, gen=None) -> (grads, metrics)``:
+      training-mode forward (which moves the BN running statistics), loss
+      and backward over one batch; ``grads`` follow
+      ``module.parameters()``. ``gen`` is the generator of the eff
+      family's stochastic depth (``bundle.needs_dropout_gen``), which
+      raises without one; the other families take none;
     * ``update_fn(state, grads)``: AGC, the se freeze mask, then the
       optimizer, in place.
 
@@ -80,10 +83,12 @@ def make_grad_update(bundle: ModelBundle):
     transposed = transposed_weights(bundle.module)
     mask = bundle.trainable_mask() if config.model_type == 'se' else None
 
-    def grad_fn(module: nn.Module, batch):
+    needs_gen = bundle.needs_dropout_gen
+
+    def grad_fn(module: nn.Module, batch, gen=None):
         x, y = batch
         module.train()
-        out = module(x)
+        out = module(x, gen) if needs_gen else module(x)
         loss, parts = loss_fn(y, out)
         grads = torch.autograd.grad(loss, list(module.parameters()))
         with torch.no_grad():
@@ -105,12 +110,12 @@ def make_grad_update(bundle: ModelBundle):
 
 
 def make_train_step(bundle: ModelBundle):
-    """``train_step(state, (x, y)) -> metrics``; updates ``state`` in
-    place."""
+    """``train_step(state, (x, y), gen=None) -> metrics``; updates
+    ``state`` in place. ``gen`` as for ``grad_fn``."""
     grad_fn, update_fn = make_grad_update(bundle)
 
-    def train_step(state: TrainState, batch):
-        grads, metrics = grad_fn(state.module, batch)
+    def train_step(state: TrainState, batch, gen=None):
+        grads, metrics = grad_fn(state.module, batch, gen)
         update_fn(state, grads)
         return metrics
 

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
-                                     # vad v8, se and vad v9 steps
+                                     # vad v8, se, eff B0 v1 and vad v9
+                                     # steps
     python3 chip_smoke.py --cudnn-ab # also the model step with cuDNN's
                                      # algorithm timing off and on, each in
                                      # a fresh process (off, on, on, off)
@@ -68,6 +69,10 @@ without the result line:
    CPU on the same draws and masks, the log-mel within 2 float32 ulps
    (each device's own log); then one training-mode forward and loss of
    full-width vad v6, v7 and v9, held to float64 as in 4c;
+4e. the eff family on a small input (batch 2, B0, 40 mels, 256 frames):
+   one training-mode forward and BCE loss of each head (v1, v3, v5, v6,
+   v7), every copy given the same keep masks of stochastic depth (drawn
+   once from a CPU generator), held to float64 as in 4c;
 5. the main path: ``get_model(Config(model_type='vad', v=8))`` at full width
    (base 48, td_dim 1024, 80 mels, 512 frames, batch 12),
    ``DevicePipeline`` and ``TrainLoop.fit`` for 5 training steps and 1
@@ -99,6 +104,17 @@ without the result line:
    features and model inputs 3 and 4 wide; and
    n_chan 1, whose card features keep 2 channels (the reference's
    ``mono_chan`` quirk) and whose training raises the port's ValueError;
+5e. this slice's main path: ``get_model(Config(model_type='eff'))`` at
+   full width (EfficientNetB0, the v1 head, 80 mels, 512 frames, batch 12,
+   5,012,155 parameters) on float32 banks, ``DevicePipeline`` and
+   ``TrainLoop.fit`` for 5 training steps and 1 validation step; then B0
+   v3, v5, v6 and v7 and B7 v6 (69,891,539 parameters, the largest
+   backbone) for 2 steps each. Each run's counts are set to 0 just before
+   and read just after: the float32 magnitude kernel must have run once a
+   batch and no other kernel, every logged value must be finite, and the
+   epoch's dropout generator must have been drawn (stochastic depth ran on
+   the card); each run's peak device memory above what the earlier phases
+   hold is kept;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the se triple's: its sources read once, three windows written), the
@@ -114,6 +130,10 @@ without the result line:
    fused-mel training step (``v9_step_ms``, 20 steps); and the batch
    pipeline through B1 and the matmul mel (``pipeline_ms``) and through B4
    (``fused_mel_pipeline_ms``) in turns (unfused, fused, fused, unfused);
+   the eff B0 v1 step (``eff_step_ms``, 20 steps of one epoch), its batch
+   pipeline and model step, and B7 v6's step (``eff_b7_step_ms``, 5 steps,
+   timed right after its run in 5e so that its memory is freed before the
+   later phases), printed on the ``EFF`` line with the peaks of 5e;
 7. the CLI chain, in a temporary directory: the realistic spec sets as
    pickles under sj_train's default file names, and a dev set of 6
    two-channel 16 kHz WAVs of 60 s with ``sample_answer.json``; then
@@ -150,7 +170,14 @@ without the result line:
    epochs of 2 steps (16 validation steps each), which must launch the
    int8 flat-complex kernel once a batch (54 times) and write the trio;
    ``cli.eval.main --p`` on it, and ``evaluate()`` with the n_chan 4 model
-   of 5d and an n_chan 1 model from ``get_model``, 6 finite ERs each.
+   of 5d and an n_chan 1 model from ``get_model``, 6 finite ERs each;
+7d. the eff CLI chain in that directory: ``cli.sj_train.main`` with
+   ``--model_type eff --model 0 --v 1 --bank_dtype int8`` for 3 epochs of
+   2 steps (16 validation steps each), which must launch the int8
+   magnitude kernel once a batch (54 times) and write the trio and a
+   3-row CSV; ``cli.eval.main --p`` on it, timed (``eff_eval_s``), and
+   ``evaluate()`` with a B0 v5 model, which scores its coarse grid (8
+   frames a window), 6 finite ERs each.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -205,6 +232,9 @@ SE_STEPS, SE_VAL_STEPS = 3, 1      # each se phase of 5b
 SE_TIMED_STEPS = 10                # phase 6's se step
 CLI_EPOCHS, CLI_STEPS, CLI_VAL_STEPS = 3, 5, 16
 SE_CLI_STEPS = 2                   # phase 7b, per epoch
+EFF_STEPS, EFF_VAL_STEPS = 5, 1    # phase 5e's B0 v1 run
+EFF_HEAD_STEPS = 2                 # the other heads and B7 in 5e
+EFF_B7_TIMED_STEPS = 5             # B7 v6's step time, right after its run
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
@@ -733,6 +763,151 @@ def chan_cli_chain(d: str, n_chan4_model) -> dict:
     return res
 
 
+def fix_keep_masks(module, x, gen) -> None:
+    """Draw each stochastic-depth block's keep mask for the batch ``x``
+    once from the CPU generator ``gen``, and make the block use it in every
+    training forward, on any device (a deep copy keeps it)."""
+    for block in module.backbone.blocks:
+        if block.drop_rate > 0:
+            mask = block.keep_mask(x, gen)
+            block.keep_mask = lambda x, gen, m=mask: m.to(x.device)
+
+
+def eff_reference_check(dev) -> dict:
+    """Phase 4e: the eff family on the card against the CPU on a small
+    input (batch 2, B0, 40 mels, 256 frames): one training-mode forward and
+    BCE loss of each head (v1, v3, v5, v6, v7) with the same keep masks on
+    every copy, the card's float32 held to a float64 CPU copy within
+    ``SCORE_TOL`` of each output's peak or 10 times the CPU float32's
+    distance (phase 8's rule)."""
+    cpu = torch.device('cpu')
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 256, 2),
+                                             dtype=np.float32))
+    gaps = {}
+    for v in (1, 3, 5, 6, 7):
+        cfg = Config(model_type='eff', v=v, n_mels=40, n_frame=256)
+        m_c = get_model(cfg, device=cpu, seed=v).module
+        fix_keep_masks(m_c, x, torch.Generator().manual_seed(v))
+        models = {'cpu': m_c, 'card': copy.deepcopy(m_c).to(dev),
+                  'f64': copy.deepcopy(m_c).double()}
+        frames = {1: 256, 5: 256 * 256 // 16000}.get(v, 256 // 32)
+        y = torch.from_numpy((rng.random((2, frames, 3)) < 0.5)
+                             .astype(np.float32))
+        r = {}
+        with torch.no_grad():
+            for key, m in models.items():
+                where = dev if key == 'card' else cpu
+                dt = torch.float64 if key == 'f64' else torch.float32
+                o = m.train()(x.to(where, dt), torch.Generator(device=where))
+                r[key] = torch.cat([o.double().cpu().flatten(),
+                                    binary_crossentropy(
+                                        y.to(where, dt), o).double().cpu()
+                                    .reshape(1)])
+        gaps[f'v{v}'] = {k: float((r[k] - r['f64']).abs().max()
+                                  / r['f64'].abs().max())
+                         for k in ('cpu', 'card')}
+        if gaps[f'v{v}']['card'] > max(SCORE_TOL,
+                                       10 * gaps[f'v{v}']['cpu']):
+            raise AssertionError(f'card eff v{v} forward beyond the '
+                                 f'tolerance: {gaps}')
+    log('card vs CPU eff B0, small input: forward and loss gaps to float64 '
+        f'over the peak {json.dumps(gaps)}')
+    return {'eff_forward_gaps': gaps}
+
+
+def eff_main_path(banks) -> tuple:
+    """Phase 5e: the eff family at full width (80 mels, 512 frames, batch
+    12, n_chan 2) on float32 banks through ``get_model``,
+    ``DevicePipeline`` and ``TrainLoop.fit``: B0 v1 (the ``sj_train``
+    defaults) for 5 training steps and 1 validation step, then B0 v3, v5,
+    v6 and v7 and B7 v6 for 2 steps each, and B7 v6's step time over 5
+    more. Each run's counts are set to 0 just before it and read just
+    after: the float32 magnitude kernel must have run once a batch and no
+    other kernel, every logged value must be finite, and the epoch's
+    dropout generator must have been drawn (stochastic depth ran on the
+    card). Returns the B0 v1 loop and its iterator for phase 6, and the
+    results."""
+    kernel = KERNELS[torch.float32][0]
+    res = {'eff_launches': {}}
+    out = None
+    for model, v, steps, val_steps in (
+            (0, 1, EFF_STEPS, EFF_VAL_STEPS), (0, 3, EFF_HEAD_STEPS, 0),
+            (0, 5, EFF_HEAD_STEPS, 0), (0, 6, EFF_HEAD_STEPS, 0),
+            (0, 7, EFF_HEAD_STEPS, 0), (7, 6, EFF_HEAD_STEPS, 0)):
+        name = f'B{model}_v{v}'
+        cfg = Config(model_type='eff', model=model, v=v)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loop = TrainLoop(get_model(cfg))
+        n_params = sum(p.numel() for p in loop.state.module.parameters())
+        train_it = iter(DevicePipeline(banks, cfg))
+        val_it = iter(DevicePipeline(banks, cfg, training=False))
+        cuda.reset_launch_counts()
+        hist = loop.fit(train_it, epochs=1, steps_per_epoch=steps,
+                        validation_iter=val_it if val_steps else None,
+                        validation_steps=val_steps, verbose=0)
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        check_launches(f'eff {name}', launches, {kernel: steps + val_steps})
+        res['eff_launches'][name] = launches
+        logs = hist[0]
+        if not all(math.isfinite(x) for k, x in logs.items() if k != 'time'):
+            raise AssertionError(f'eff {name}: non-finite logs {logs}')
+        if torch.equal(loop.gen.get_state(), loop.dropout_gen(0).get_state()):
+            raise AssertionError(f'eff {name}: stochastic depth drew nothing')
+        # the run's peak above what the earlier phases hold
+        res[name] = dict(params=n_params, loss=logs['loss'],
+                         val_loss=logs.get('val_loss'),
+                         peak_gib=(torch.cuda.max_memory_allocated() - base)
+                         / 2**30)
+        if model == 7:
+            res['eff_b7_step_ms'] = wall_ms(lambda: loop.run_epoch(
+                train_it, EFF_B7_TIMED_STEPS, training=True),
+                1) / EFF_B7_TIMED_STEPS
+        if out is None:
+            out = loop, train_it
+        del loop, train_it, val_it
+    log(f'eff main path: {json.dumps(res)}')
+    return out + (res,)
+
+
+def eff_cli_chain(d: str) -> dict:
+    """Phase 7d, in the CLI chain's directory ``d``: ``cli.sj_train`` with
+    ``--model_type eff --v 1 --bank_dtype int8`` (B0) for 3 epochs of 2
+    steps, the int8 magnitude kernel once a batch; its trio and CSV;
+    ``cli.eval --p``, timed; then ``evaluate()`` with a B0 v5 model on its
+    coarse grid."""
+    res = {}
+    start = time.perf_counter()
+    batches = CLI_EPOCHS * (SE_CLI_STEPS + CLI_VAL_STEPS)
+    run, res['eff_int8_launches'], res['eff_int8_cli_s'] = run_cli(
+        ['--model_type', 'eff', '--model', '0', '--v', '1', '--datapath', d,
+         '--bank_dtype', 'int8', '--epochs', str(CLI_EPOCHS),
+         '--steps_per_epoch', str(SE_CLI_STEPS)], 'synth_mag_int8', batches)
+    res['eff_cli_batches'] = batches
+    check_trio(run)
+    with open(run + '.csv') as f:
+        rows = f.read().strip().splitlines()
+    if len(rows) != 1 + CLI_EPOCHS:
+        raise AssertionError(f'{run}.csv has {len(rows)} lines')
+    t0 = time.perf_counter()
+    ers = {'eff_v1_cli': eval_cli.main(['--name', run, '--p'])}
+    torch.cuda.synchronize()
+    res['eff_eval_s'] = time.perf_counter() - t0
+    v5 = Config(model_type='eff', v=5)
+    ers['eff_v5'] = infer.evaluate(v5, get_model(v5).module)
+    torch.cuda.synchronize()
+    for k, e in ers.items():
+        if len(e) != 6 or not all(map(math.isfinite, e)):
+            raise AssertionError(f'{k} ERs: {e}')
+    log(f'eff eval, 6 x 60 s: ERs {json.dumps(ers)}, the CLI\'s in '
+        f'{res["eff_eval_s"]:.3f} s')
+    res['eff_ers'] = ers
+    log(f'phase 7d: {time.perf_counter() - start:.3f} s')
+    return res
+
+
 def gpu_ms(fn, arg_list, reps: int) -> float:
     """Device milliseconds per call of ``fn`` over ``reps`` calls cycling
     through ``arg_list``. The card first sleeps while the host queues
@@ -1095,8 +1270,8 @@ def se_cli_chain(d: str) -> dict:
 
 
 def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
-    """Phases 7, 8, 7b and 7c, in a temporary directory that is removed
-    after."""
+    """Phases 7, 8, 7b, 7c and 7d, in a temporary directory that is
+    removed after."""
     res = {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as d:
@@ -1135,6 +1310,7 @@ def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
             res.update(card_vs_cpu_eval(dev, run, answers))
             res.update(se_cli_chain(d))
             res.update(chan_cli_chain(d, chan4_model))
+            res.update(eff_cli_chain(d))
         finally:
             os.chdir(cwd)
     return res
@@ -1302,6 +1478,7 @@ def main(argv) -> int:
         flag = argv[argv.index('--model-step') + 1]
         log(json.dumps({'ms': model_step_ms(flag == 'on')}))
         return 0
+    run_start = time.perf_counter()
     dev = torch.device('cuda', 0)
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
@@ -1381,6 +1558,9 @@ def main(argv) -> int:
     log('card vs CPU, small input: ' + json.dumps(small_reference_check(dev)))
     se_ref = se_reference_check(dev)
     mel_ref = mel_reference_check(dev)
+    t0 = time.perf_counter()
+    eff_ref = eff_reference_check(dev)
+    log(f'phase 4e: {time.perf_counter() - t0:.3f} s')
 
     # 5. the main path
     f32_kernel = KERNELS[torch.float32][0]
@@ -1408,6 +1588,10 @@ def main(argv) -> int:
     # the channel maps through the flat-complex kernel
     v9_loop, v9_train_it, mel = mel_main_path(banks)
     chan4_model, chan = chan_main_path(banks)
+    # 5e. this slice's main path: the eff family through kernel B1
+    t0 = time.perf_counter()
+    eff_loop, eff_train_it, eff = eff_main_path(banks['float32'])
+    log(f'phase 5e: {time.perf_counter() - t0:.3f} s')
 
     # 6. times: each kernel on the main path's draws (the flat-complex
     # ones on the full mix, the se triple on the same draws); then the
@@ -1499,6 +1683,7 @@ def main(argv) -> int:
 
     # the se v9 step (pretrain, float32 banks), timed as vad's
     se_batch = next(se_train_it)
+    torch.cuda.reset_peak_memory_stats()     # phase 5e's runs reset it too
     se['se_step_ms'] = wall_ms(lambda: se_loop.run_epoch(
         se_train_it, SE_TIMED_STEPS, training=True), 1) / SE_TIMED_STEPS
     se['se_pipeline_ms'] = wall_ms(lambda: next(se_train_it), 10)
@@ -1508,6 +1693,20 @@ def main(argv) -> int:
     if '--profile' in argv:
         profile_steps(se_loop, se_train_it, 5, 'SE_PROFILE')
     del se_loop, se_train_it, se_batch
+
+    # the eff B0 v1 step, timed as vad's
+    t0 = time.perf_counter()
+    eff_batch = next(eff_train_it)
+    eff['eff_step_ms'] = wall_ms(lambda: eff_loop.run_epoch(
+        eff_train_it, 20, training=True), 1) / 20
+    eff['eff_pipeline_ms'] = wall_ms(lambda: next(eff_train_it), 20)
+    eff_gen = torch.Generator(device=dev).manual_seed(0)
+    eff['eff_model_step_ms'] = wall_ms(
+        lambda: eff_loop.train_step(eff_loop.state, eff_batch, eff_gen), 20)
+    if '--profile' in argv:
+        profile_steps(eff_loop, eff_train_it, 10, 'EFF_PROFILE')
+    del eff_loop, eff_train_it, eff_batch
+    log(f'phase 6, eff times: {time.perf_counter() - t0:.3f} s')
 
     # the v9 fused-mel step, timed as vad's; then the batch pipeline
     # through kernel B4 and through B1 plus the matmul mel, in turns
@@ -1556,6 +1755,7 @@ def main(argv) -> int:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f'all phases: {time.perf_counter() - run_start:.3f} s')
     log('STEP ' + json.dumps({
         'step_ms': step_ms, 'pipeline_ms': pipe_ms, 'model_step_ms': model_ms,
         'empty_launch_ms': empty_ms,
@@ -1569,6 +1769,12 @@ def main(argv) -> int:
     log('MEL ' + json.dumps({**{k: v for k, v in {**mel, **chan}.items()
                                  if not k.endswith('launches')}, **mel_ref,
                               'card': smi}))
+    log('EFF ' + json.dumps({
+        **{k: v for k, v in eff.items() if k != 'eff_launches'}, **eff_ref,
+        **{k: cli[k] for k in ('eff_int8_cli_s', 'eff_eval_s', 'eff_ers')},
+        'eff_launches': {**eff['eff_launches'],
+                         'cli_int8': cli['eff_int8_launches']},
+        'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
                              if not k.endswith('launches')}))
     log(smi)

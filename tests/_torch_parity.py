@@ -7,6 +7,9 @@ JAX's batch draws are taken at the synthesis kernel's boundary so that the
 port can be fed exactly what JAX drew.
 """
 
+import contextlib
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -295,3 +298,56 @@ def vad_variables(module, input_shape, seed: int = 0):
             v = 0.1 * rng.standard_normal(shape)
         return np.asarray(v, np.float32)
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def f64(tree):
+    return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+
+
+@contextlib.contextmanager
+def x64():
+    """``jax.enable_x64`` with flax's LSTM and GRU cells keeping their
+    state in float64: a cell's ``param_dtype`` (the dtype of its zero
+    initial carry) stays float32 under the model's ``dtype=float64``, and
+    ``lax.scan`` then refuses the float64 carry the cell returns.
+    Subclasses of the same names keep the flax variable paths."""
+    from flax import linen as nn
+
+    class OptimizedLSTMCell(nn.OptimizedLSTMCell):
+        param_dtype: object = jnp.float64
+
+    class GRUCell(nn.GRUCell):
+        param_dtype: object = jnp.float64
+
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn, 'OptimizedLSTMCell', OptimizedLSTMCell)
+        mp.setattr(nn, 'GRUCell', GRUCell)
+        yield
+
+
+def write_dev_set(d, seconds=(4.0, 6.5, 8.0)):
+    """Two-channel 16 kHz WAVs of the given lengths (by default 3 of 4-8
+    s) with a tone on channel 0 in directory ``d``, and a
+    ``sample_answer.json`` of a few events each."""
+    from _helpers import write_wav
+    answers = {}
+    for i, secs in enumerate(seconds):
+        write_wav(d / f'clip{i}.wav', seconds=secs, seed=10 + i,
+                  tone_hz=300 + 200 * i)
+        answers[f'clip{i}'] = [[i % 3, 0.5, 1.5], [(i + 1) % 3, 2.0, 3.5]]
+    with open(d / 'sample_answer.json', 'w') as f:
+        json.dump({'task2_answer': answers}, f)
+    return d
+
+
+def record_grids(monkeypatch, module):
+    """The 0/1 frame grids that ``module.evaluate`` scores, in clip
+    order."""
+    grids = []
+    orig = module.get_start_end_frame
+
+    def rec(grid):
+        grids.append(np.asarray(grid))
+        return orig(grid)
+    monkeypatch.setattr(module, 'get_start_end_frame', rec)
+    return grids

@@ -39,7 +39,8 @@ import torch
 
 from _helpers import write_wav
 from _torch_parity import (
-    BATCH, N_FRAME, N_MELS, port_draws, small_sources, vad_variables)
+    BATCH, N_FRAME, N_MELS, port_draws, record_grids, small_sources,
+    vad_variables, write_dev_set)
 from challenge_tpu.config import Config as JConfig
 from challenge_tpu.data import labels as jlabels
 from challenge_tpu.models.registry import ModelBundle as JBundle
@@ -268,26 +269,7 @@ def test_n_chan_1_features_keep_two_channels_and_training_raises():
 def dev_set(tmp_path_factory):
     """3 two-channel 16 kHz WAVs of 4-8 s with a tone on channel 0, and
     answers of a few events each (as test_torch_eval.py's)."""
-    d = tmp_path_factory.mktemp('dev')
-    answers = {}
-    for i, secs in enumerate((4.0, 6.5, 8.0)):
-        write_wav(d / f'clip{i}.wav', seconds=secs, seed=10 + i,
-                  tone_hz=300 + 200 * i)
-        answers[f'clip{i}'] = [[i % 3, 0.5, 1.5], [(i + 1) % 3, 2.0, 3.5]]
-    with open(d / 'sample_answer.json', 'w') as f:
-        json.dump({'task2_answer': answers}, f)
-    return d
-
-
-def _record_grids(monkeypatch, module):
-    grids = []
-    orig = module.get_start_end_frame
-
-    def rec(grid):
-        grids.append(np.asarray(grid))
-        return orig(grid)
-    monkeypatch.setattr(module, 'get_start_end_frame', rec)
-    return grids
+    return write_dev_set(tmp_path_factory.mktemp('dev'))
 
 
 @pytest.mark.parametrize('n_chan', [1, 3, 4])
@@ -301,7 +283,7 @@ def test_evaluate_grids_and_ers_equal_jax(dev_set, monkeypatch, n_chan):
     shape = (N_MELS, N_FRAME, n_chan)
     jm = JVADModel(v=3, base_fsize=8, td_dim=32)
     variables = vad_variables(jm, shape, seed=5)
-    jgrids = _record_grids(monkeypatch, jinfer)
+    jgrids = record_grids(monkeypatch, jinfer)
     jers = jinfer.evaluate(JConfig(**cfg), JBundle(jm, shape, JConfig(**cfg)),
                            variables, overlap_hop=32, eval_dir=str(dev_set))
     pm = VADModel(v=3, base_fsize=8, td_dim=32, n_mels=N_MELS, n_chan=n_chan)
@@ -313,7 +295,7 @@ def test_evaluate_grids_and_ers_equal_jax(dev_set, monkeypatch, n_chan):
                                maxval=0.9)
         return torch.from_numpy(np.asarray(f).reshape(b, number - 2))
     monkeypatch.setattr(infer, 'merge_factors', jax_factor)
-    grids = _record_grids(monkeypatch, infer)
+    grids = record_grids(monkeypatch, infer)
     ers = infer.evaluate(Config(**cfg), pm, overlap_hop=32,
                          eval_dir=str(dev_set))
     assert len(grids) == len(jgrids) == 3

@@ -14,8 +14,6 @@ Tolerances:
   smoothed score lies within float32 noise of 0.5.
 """
 
-import json
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +21,8 @@ import pytest
 import torch
 
 from _helpers import write_wav
-from _torch_parity import N_FRAME, N_MELS, vad_variables
+from _torch_parity import (
+    N_FRAME, N_MELS, record_grids, vad_variables, write_dev_set)
 from challenge_tpu.config import Config as JConfig
 from challenge_tpu.evaluate import events as jevents
 from challenge_tpu.evaluate import infer as jinfer
@@ -139,26 +138,7 @@ CFG = dict(model_type='vad', v=8, n_mels=N_MELS, n_frame=N_FRAME, n_chan=2)
 def dev_set(tmp_path_factory):
     """3 two-channel 16 kHz WAVs of 4-8 s with a tone on channel 0, and
     answers of a few events each."""
-    d = tmp_path_factory.mktemp('dev')
-    answers = {}
-    for i, secs in enumerate((4.0, 6.5, 8.0)):
-        write_wav(d / f'clip{i}.wav', seconds=secs, seed=10 + i,
-                  tone_hz=300 + 200 * i)
-        answers[f'clip{i}'] = [[i % 3, 0.5, 1.5], [(i + 1) % 3, 2.0, 3.5]]
-    with open(d / 'sample_answer.json', 'w') as f:
-        json.dump({'task2_answer': answers}, f)
-    return d
-
-
-def _record_grids(monkeypatch, module):
-    grids = []
-    orig = module.get_start_end_frame
-
-    def rec(grid):
-        grids.append(np.asarray(grid))
-        return orig(grid)
-    monkeypatch.setattr(module, 'get_start_end_frame', rec)
-    return grids
+    return write_dev_set(tmp_path_factory.mktemp('dev'))
 
 
 def test_evaluate_grids_and_ers_equal_jax(dev_set, monkeypatch):
@@ -167,12 +147,12 @@ def test_evaluate_grids_and_ers_equal_jax(dev_set, monkeypatch):
     jm = JVADModel(v=8, base_fsize=8, td_dim=32)
     variables = vad_variables(jm, (N_MELS, N_FRAME, 2), seed=5)
     jbundle = ModelBundle(jm, (N_MELS, N_FRAME, 2), JConfig(**CFG))
-    jgrids = _record_grids(monkeypatch, jinfer)
+    jgrids = record_grids(monkeypatch, jinfer)
     jers = jinfer.evaluate(JConfig(**CFG), jbundle, variables,
                            overlap_hop=32, eval_dir=str(dev_set))
     pm = VADModel(v=8, base_fsize=8, td_dim=32, n_mels=N_MELS)
     pm.load_state_dict(flax_to_state_dict(variables))
-    grids = _record_grids(monkeypatch, infer)
+    grids = record_grids(monkeypatch, infer)
     ers = infer.evaluate(Config(**CFG), pm, overlap_hop=32,
                          eval_dir=str(dev_set))
     assert len(grids) == len(jgrids) == 3

@@ -515,11 +515,18 @@ def test_evaluate_se_grids_and_ers_equal_jax(variables, tmp_path,
 
 
 def test_only_se_v9_builds_and_eff_eval_is_refused():
+    """Only se v9 builds. The eff family's eval, refused before it was
+    ported, now scores a spectrogram (its grids against JAX's:
+    test_torch_effnet_eval.py)."""
     from challenge_tpu_torch.evaluate.infer import spec_to_scores
     with pytest.raises(ValueError, match='only se v9'):
         get_model(Config(model_type='se', v=3), device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        spec_to_scores(Config(model_type='eff'), None, torch.zeros(257, 8, 4))
+    eff = Config(model_type='eff', v=3, n_mels=32, n_frame=64)
+    spec = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (257, 80, 4)).astype(np.float32))
+    scores = spec_to_scores(eff, get_model(eff, device='cpu').module, spec)
+    # one window of 64 frames covers the 80-frame clip's first 64
+    assert scores.shape == (64, 3) and bool(scores.isfinite().all())
     bundle = get_model(Config(**_cfg(True)), device='cpu')
     assert bundle.multi_output and bundle.input_shape == SHAPE
     mask = bundle.trainable_mask()

@@ -97,15 +97,20 @@ def test_train_forward_and_bn_stats_match_jax(models):
 
 
 def test_unported_versions_raise():
-    """Every vad version is built (v6, v7 and v9: test_torch_vad_versions.py);
-    what is still unported raises and names its ROADMAP item: the
-    EfficientNet-SED family (A12) and bfloat16 compute (A14)."""
+    """Every vad version is built (v6, v7 and v9: test_torch_vad_versions.py)
+    and so is the EfficientNet-SED family (test_torch_effnet.py); what is
+    still unported raises and names its ROADMAP item: the density head
+    (A13) and bfloat16 compute (A14)."""
     from challenge_tpu_torch.config import Config
+    from challenge_tpu_torch.models.effnet import EffNetSED
     from challenge_tpu_torch.models.registry import get_model
     for v in range(1, 10):
         assert VADModel(v=v, base_fsize=8, td_dim=32).v == v
-    with pytest.raises(NotImplementedError, match='ROADMAP A12'):
-        get_model(Config(model_type='eff', v=1), device='cpu')
+    bundle = get_model(Config(model_type='eff', v=1, n_mels=32, n_frame=64),
+                       device='cpu')
+    assert isinstance(bundle.module, EffNetSED) and bundle.needs_dropout_gen
+    with pytest.raises(NotImplementedError, match='ROADMAP A13'):
+        EffNetSED(head='density')
     with pytest.raises(NotImplementedError, match='ROADMAP A14'):
         get_model(Config(model_type='vad', compute_dtype='bfloat16'),
                   device='cpu')

@@ -18,7 +18,6 @@ float64 on both sides, as test_torch_train.py runs v8's; JAX takes about
 the BiLSTM's gradients and the update on the same gradients.
 """
 
-import contextlib
 import copy
 import functools
 
@@ -29,6 +28,8 @@ import pytest
 import torch
 
 from _torch_parity import N_FRAME, N_MELS, vad_variables
+from _torch_parity import f64 as _f64
+from _torch_parity import x64 as _x64
 from challenge_tpu.config import Config as JConfig
 from challenge_tpu.models.registry import ModelBundle as JBundle
 from challenge_tpu.models.vad import VADModel as JVADModel
@@ -54,27 +55,6 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
-
-
-def _f64(tree):
-    return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
-
-
-@contextlib.contextmanager
-def _x64():
-    """``jax.enable_x64`` with flax's LSTM cell keeping its state in
-    float64: its ``param_dtype`` (the dtype of its zero initial carry)
-    stays float32 under the model's ``dtype=float64``, and ``lax.scan``
-    then refuses the float64 carry the cell returns. A subclass of the
-    same name keeps the flax variable paths."""
-    from flax import linen as nn
-
-    class OptimizedLSTMCell(nn.OptimizedLSTMCell):
-        param_dtype: object = jnp.float64
-
-    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
-        mp.setattr(nn, 'OptimizedLSTMCell', OptimizedLSTMCell)
-        yield
 
 
 @functools.lru_cache(maxsize=None)
