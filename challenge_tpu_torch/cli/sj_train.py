@@ -64,6 +64,15 @@ def make_banks(config: Config, training: bool = True, n_classes: int = 3,
                        device=device)
 
 
+def refuse_checkpoint_flags(config: Config) -> None:
+    """The checkpoint flags of ROADMAP A15: ``--ckpt_dir``, ``--resume``
+    and ``--keras_ckpt``."""
+    for flag in ('ckpt_dir', 'resume', 'keras_ckpt'):
+        if getattr(config, flag):
+            raise NotImplementedError(
+                f'--{flag} is not ported yet (ROADMAP A15)')
+
+
 def select_monitors(config: Config):
     """Reference monitor selection (sj_train.py:475-486)."""
     if config.model_type == 'se' and config.v == 9:
@@ -76,12 +85,7 @@ def select_monitors(config: Config):
 def main(argv=None) -> str:
     """Train; returns the run name."""
     config = config_from_args(argv, extra=DEVICE_FLAG)
-    for flag, on in (('ckpt_dir', bool(config.ckpt_dir)),
-                     ('resume', config.resume),
-                     ('keras_ckpt', config.keras_ckpt)):
-        if on:
-            raise NotImplementedError(
-                f'--{flag} is not ported yet (ROADMAP A15)')
+    refuse_checkpoint_flags(config)
     config.loss = config.loss.upper()
     if config.loss != 'MSE':
         config.mse_multiplier = 1

@@ -1,17 +1,38 @@
 """Per-example label and channel maps (counterpart:
-``challenge_tpu/data/labels.py``; reference: data_utils.py:64-97)."""
+``challenge_tpu/data/labels.py``; reference: data_utils.py:64-97,
+trainer.py:86-104)."""
 
 from __future__ import annotations
 
 import torch
 
 from challenge_tpu_torch.models.layers import avg_pool_same
+from challenge_tpu_torch.ops.norms import safe_div
 
 
 def to_frame_labels(y):
     """[..., n_voices, n_frames, n_classes] -> [..., n_frames, n_classes]
     (reference: data_utils.py:64-70)."""
     return y.sum(dim=-3)
+
+
+def to_density_labels(y):
+    """[..., n_voices, n_frames, n_classes] -> [..., n_frames, n_classes]:
+    each voice's label mass over (frames, classes) normalised to 1, a
+    silent slot left at 0, then summed over the voices (counterpart:
+    ``labels.py:18-22``; reference: trainer.py:97-104)."""
+    y = safe_div(y, y.sum(dim=(-2, -1), keepdim=True))
+    return y.sum(dim=-3)
+
+
+def preprocess_labels(y, multiplier: float):
+    """Density labels [B, T, C] -> [B, T / 32, C] times ``multiplier``:
+    five 'SAME' average pools of 2 frames, stride 2, each times 2: on a
+    length that 32 divides, the sum of each 32 frames (counterpart:
+    ``labels.py:70-77``; reference: trainer.py:86-94)."""
+    for _ in range(5):
+        y = avg_pool_same(y, 2, 2) * 2
+    return y * multiplier
 
 
 def mono_chan(x):

@@ -1,6 +1,6 @@
 """Bank building and the training feature chain (counterpart:
 ``challenge_tpu/data/pipeline.py``: ``build_banks``, ``make_feature_fn``
-with ``variant='sj'``, ``DevicePipeline``).
+with ``variant='sj'`` and ``'density'``, ``DevicePipeline``).
 
 One batch, by configuration:
 
@@ -21,7 +21,15 @@ One batch, by configuration:
   row dropped, real half kept -> label downsample, with no SpecAugment,
   mel or log.
 
-The ``density`` variant (ROADMAP A13) is not ported.
+The ``density`` variant (the density trainer's batch, pipeline.py:204-252,
+292-302) differs from these in three ways: its labels are the density
+labels (each voice's mass normalised to 1, summed over voices, then
+summed over each 32 frames and times ``mse_multiplier``); it always takes
+the minmax and never the stft filter, whatever the run name holds; and
+at n_chan != 2 it maps no channel, so the features keep 2 channels
+(ROADMAP C9). So: n_chan 2 goes through B1/B3 and the matmul mel, or with
+``fused_mel=True`` through B4; any other n_chan through B2 and the
+complex mel.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 
 from challenge_tpu_torch.config import Config
 from challenge_tpu_torch.data.labels import (
-    label_downsample, mono_chan, speech_enhancement_preprocess, stereo_mono,
+    label_downsample, mono_chan, preprocess_labels,
+    speech_enhancement_preprocess, stereo_mono, to_density_labels,
     to_frame_labels)
 from challenge_tpu_torch.data.mixture import (
     Banks, draw, synthesize, synthesize_complex, synthesize_mel,
@@ -78,13 +87,17 @@ def build_banks(backgrounds, voices, labels, noises=None,
 
 class FeatureFn:
     """``(gen, banks) -> (x [B, n_mels, n_frame, c], y)``, the ``sj_train``
-    batch (counterpart: ``make_feature_fn(config, training,
-    variant='sj', fused_mel=...)``, pipeline.py:106-339). ``c`` is n_chan,
+    batch, or with ``variant='density'`` the density trainer's
+    (counterpart: ``make_feature_fn(config, training, variant,
+    n_classes, fused_mel=...)``, pipeline.py:106-339). ``c`` is n_chan,
     except for n_chan 1, whose features keep 2 channels as JAX's do (the
     ``mono_chan`` quirk, see ``labels.mono_chan``). For se v9 ``(x [B, 256,
     n_frame, 2], (frame labels [B, n_frame / 32, C], only_voice,
     only_noise [B, 256, n_frame, 1]))`` (pipeline.py:265-306), with ``x``
-    and the targets in bfloat16 for bfloat16 and int8 banks.
+    and the targets in bfloat16 for bfloat16 and int8 banks. The density
+    variant gives ``c`` = 2 for every n_chan and labels [B, n_frame / 32,
+    C] (the module docstring). ``n_classes``, as in JAX, is the width of
+    the banks' labels; given, it must be that width.
 
     ``fused_mel=True`` takes the mel from kernel B4 (pipeline.py:204-252);
     it needs n_chan 2 and not se, as JAX asserts (pipeline.py:187-189). Its
@@ -98,9 +111,15 @@ class FeatureFn:
     :meth:`complex_features` before minmax."""
 
     def __init__(self, config: Config, training: bool = True, device=None,
-                 fused_mel: bool = False):
+                 fused_mel: bool = False, variant: str = 'sj',
+                 n_classes: Optional[int] = None):
+        if variant not in ('sj', 'density'):
+            raise ValueError(f'unknown variant {variant!r}')
         self.config = config
-        self.se_v9 = config.model_type == 'se' and config.v == 9
+        self.density = variant == 'density'
+        self.n_classes = n_classes
+        self.se_v9 = (config.model_type == 'se' and config.v == 9
+                      and not self.density)
         if fused_mel and (config.n_chan != 2 or self.se_v9):
             raise ValueError('fused_mel requires the n_chan == 2 '
                              'configuration that is not se')
@@ -111,8 +130,10 @@ class FeatureFn:
         self.melm = torch.tensor(mel_filterbank(config.n_mels, self.freq),
                                  device=self.device)
         self.band = mel_band(self.melm) if fused_mel else None
-        self.use_filter = 'filter' in config.name
-        self.use_minmax = 'nominmax' not in config.name
+        # the density branch ignores both name switches (pipeline.py:221,
+        # 237, 292-302)
+        self.use_filter = 'filter' in config.name and not self.density
+        self.use_minmax = 'nominmax' not in config.name or self.density
         filter_num = int(round(200 / (16000 / 256)))   # sj_train.py:117
         self.filter_keep = stft_filter_keep(self.freq, filter_num,
                                             self.device)
@@ -132,6 +153,9 @@ class FeatureFn:
     def labels(self, y):
         """Per-voice labels [B, V, T, C] -> the model's targets."""
         cfg = self.config
+        if self.density:
+            return preprocess_labels(to_density_labels(y),
+                                     cfg.mse_multiplier)
         y = to_frame_labels(y)
         if cfg.v in LABEL_DOWNSAMPLE_MODELS:
             y = label_downsample(y, 32)
@@ -183,8 +207,10 @@ class FeatureFn:
         im1; float32, or bfloat16 from reduced-precision banks); masks as
         in :meth:`mel`; ``factors`` [B, n_chan - 2] the merge factors for
         n_chan > 3. The steps keep JAX's dtypes: masks and sums in the
-        window's dtype, the merge in float32, the mel product in float32."""
-        n_chan = self.config.n_chan
+        window's dtype, the merge in float32, the mel product in float32.
+        The density variant maps no channel: c = 2."""
+        # the density branch maps no channel (ROADMAP C9)
+        n_chan = 2 if self.density else self.config.n_chan
         b, t, _ = flat.shape
         spec = flat.reshape(b, t, 4, self.freq).transpose(2, 3)  # [B,T,f,4]
         if tmask is not None:
@@ -212,6 +238,10 @@ class FeatureFn:
 
     def __call__(self, gen: torch.Generator, banks: Banks):
         cfg = self.config
+        width = banks.voice_labels.shape[-1]
+        if self.n_classes is not None and width != self.n_classes:
+            raise ValueError(f'banks have {width} label classes, the '
+                             f'pipeline {self.n_classes}')
         d = draw(gen, banks, cfg.batch_size, cfg.n_frame,
                  max_voices=cfg.max_voices, max_noises=cfg.max_noises,
                  min_ratio=1.0, snr=cfg.snr)
@@ -222,7 +252,7 @@ class FeatureFn:
         if cfg.n_chan != 2:
             flat, y = synthesize_complex(banks, d)
             factors = (merge_factors(gen, cfg.batch_size, cfg.n_chan)
-                       if cfg.n_chan > 3 else None)
+                       if cfg.n_chan > 3 and not self.density else None)
             return self.complex_features(flat, y, tmask, fmask, factors)
         if self.fused_mel:
             b = cfg.batch_size
@@ -240,17 +270,20 @@ class FeatureFn:
 
 
 class DevicePipeline:
-    """Infinite iterator of on-device (x, y) batches from ``banks``, which
-    must live on ``device`` (default ``cuda``)."""
+    """Infinite iterator of on-device (x, y) batches of :class:`FeatureFn`
+    (``variant`` and ``n_classes`` as there) from ``banks``, which must
+    live on ``device`` (default ``cuda``)."""
 
     def __init__(self, banks: Banks, config: Config, training: bool = True,
-                 seed: Optional[int] = None, device=None):
+                 seed: Optional[int] = None, device=None,
+                 variant: str = 'sj', n_classes: Optional[int] = None):
         self.device = resolve_device(device)
         if banks.backgrounds.flat.device != self.device:
             raise ValueError(f'banks are on {banks.backgrounds.flat.device}, '
                              f'the pipeline on {self.device}')
         self.banks = banks
-        self.fn = FeatureFn(config, training, self.device)
+        self.fn = FeatureFn(config, training, self.device, variant=variant,
+                            n_classes=n_classes)
         base = config.seed if seed is None else seed
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(base + (0 if training else 1))

@@ -11,7 +11,9 @@ MBConv blocks with squeeze-excite, width and depth scaled per variant, a
       and a BiGRU;
   v6: a BiGRU and FC 256, 128, 64 with BN;
   v7: a BiGRU gated by tanh(Conv1D) over the raw input's mel axis;
-then Dense n_classes and a sigmoid. v2 and v4 are deprecated.
+then Dense n_classes and a sigmoid. v2 and v4 are deprecated. The
+density trainer's head (``head='density'``, reference: trainer.py:222-236)
+has no version: after the gated stack, Dense n_classes and a relu.
 
 The public input layout is JAX's, [B, n_mels, n_frame, n_chan]; the
 module permutes to NCHW inside. Kept deviation, as in JAX: no Keras
@@ -208,20 +210,24 @@ class EffNetSED(nn.Module):
     """The EfficientNet SED model (counterpart: ``effnet.py:157-220``).
     n_frame, n_mels and n_chan fix the head's widths, which flax infers
     at init. ``forward(x, gen)``: a training forward needs ``gen``, the
-    generator of stochastic depth, as JAX's needs a dropout key."""
+    generator of stochastic depth, as JAX's needs a dropout key.
+    ``head='density'`` ignores ``v`` (JAX builds it with v=0) and ends in a
+    relu; its Dense stays the last of ``denses``, flax's
+    ``Dense_{n_layers}``."""
 
     def __init__(self, model: int = 0, v: int = 1, n_classes: int = 3,
                  n_layers: int = 0, n_dim: int = 256, n_frame: int = 512,
                  n_mels: int = 80, n_chan: int = 2, head: str = 'sed'):
         super().__init__()
-        if head != 'sed':
-            raise NotImplementedError(
-                f"head={head!r} (the density trainer's) is not ported yet "
-                '(ROADMAP A13)')
-        if v in (2, 4):
+        if head not in ('sed', 'density'):
+            raise ValueError(f'unknown head {head!r}')
+        if head == 'density':
+            v = 0                  # no version branch below takes it
+        elif v in (2, 4):
             raise ValueError(f'version {v} is deprecated')
-        if v not in VERSIONS:
+        elif v not in VERSIONS:
             raise ValueError('wrong version')
+        self.density = head == 'density'
         self.n_chan = n_chan
         self.backbone = EfficientNetBackbone(model, n_chan)
         mel_out, t_out = n_mels, n_frame
@@ -309,4 +315,5 @@ class EffNetSED(nn.Module):
             big = x.reshape(x.shape[0], x.shape[1], -1).transpose(1, 2)
             big = F.pad(big, same_pads(big.shape[-1], 16, 5))
             out = out * torch.tanh(self.gate(big)).transpose(1, 2)
-        return torch.sigmoid(self.denses[-1](out)).float()
+        out = self.denses[-1](out)
+        return (F.relu(out) if self.density else torch.sigmoid(out)).float()

@@ -1,6 +1,7 @@
 """``get_model(config)`` (counterpart: ``challenge_tpu/models/registry.py``;
 reference: sj_train.py:295-403): the vad, EfficientNet-SED (eff) and se
-families."""
+families; ``get_density_model(config)``, the density trainer's
+EfficientNet (reference: trainer.py:222-236)."""
 
 from __future__ import annotations
 
@@ -46,14 +47,32 @@ class ModelBundle:
         return [n.startswith('se.') == pretrain for n in names]
 
 
-def get_model(config: Config, device=None, seed: int = 0) -> ModelBundle:
-    """Build the model family of ``config.model_type`` on ``device``
-    (default ``cuda``), weights drawn from ``seed``."""
-    device = resolve_device(device)
+def _refuse_compute_dtype(config: Config) -> None:
     if getattr(config, 'compute_dtype', 'float32') != 'float32':
         raise NotImplementedError(
             f'compute_dtype={config.compute_dtype} is not ported yet '
             '(ROADMAP A14)')
+
+
+def _eff_bundle(config: Config, device, seed: int, model: int,
+                head: str) -> ModelBundle:
+    module = EffNetSED(
+        model=model, v=config.v, n_classes=config.n_classes,
+        n_layers=config.n_layers, n_dim=config.n_dim,
+        n_frame=config.n_frame, n_mels=config.n_mels,
+        n_chan=config.n_chan, head=head).to(device)
+    bundle = ModelBundle(module, (config.n_mels, config.n_frame,
+                                  config.n_chan), config, device,
+                         needs_dropout_gen=True)
+    bundle.init(seed)
+    return bundle
+
+
+def get_model(config: Config, device=None, seed: int = 0) -> ModelBundle:
+    """Build the model family of ``config.model_type`` on ``device``
+    (default ``cuda``), weights drawn from ``seed``."""
+    device = resolve_device(device)
+    _refuse_compute_dtype(config)
     if config.model_type == 'vad':
         module = VADModel(
             v=config.v, n_classes=config.n_classes,
@@ -64,16 +83,7 @@ def get_model(config: Config, device=None, seed: int = 0) -> ModelBundle:
         bundle.init(seed)
         return bundle
     if config.model_type == 'eff':
-        module = EffNetSED(
-            model=config.model, v=config.v, n_classes=config.n_classes,
-            n_layers=config.n_layers, n_dim=config.n_dim,
-            n_frame=config.n_frame, n_mels=config.n_mels,
-            n_chan=config.n_chan).to(device)
-        bundle = ModelBundle(module, (config.n_mels, config.n_frame,
-                                      config.n_chan), config, device,
-                             needs_dropout_gen=True)
-        bundle.init(seed)
-        return bundle
+        return _eff_bundle(config, device, seed, config.model, 'sed')
     if config.model_type == 'se':
         if config.v != 9:
             # SECascade builds for any v, but only v9 has a loss in the
@@ -88,3 +98,22 @@ def get_model(config: Config, device=None, seed: int = 0) -> ModelBundle:
         bundle.init(seed)
         return bundle
     raise ValueError(f'unknown model_type: {config.model_type!r}')
+
+
+def parse_model_id(model) -> int:
+    """The EfficientNet B-number of ``model``: an int, or a name such as
+    'EfficientNetB4' (reference: trainer.py:18; counterpart:
+    ``registry.py:125-130``)."""
+    return model if isinstance(model, int) else int(str(model)[-1])
+
+
+def get_density_model(config: Config, device=None,
+                      seed: int = 0) -> ModelBundle:
+    """The density trainer's EfficientNet{config.model} with the density
+    head (counterpart: ``registry.py:138-148``) on ``device`` (default
+    ``cuda``), weights drawn from ``seed``. Its training forward takes the
+    generator of stochastic depth, as the eff family's does."""
+    device = resolve_device(device)
+    _refuse_compute_dtype(config)
+    return _eff_bundle(config, device, seed, parse_model_id(config.model),
+                       'density')

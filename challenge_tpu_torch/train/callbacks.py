@@ -6,9 +6,8 @@ Callbacks receive the :class:`~challenge_tpu_torch.train.loop.TrainLoop`
 (which owns the TrainState) and a ``logs`` dict of floats per epoch. Order
 matters and mirrors the reference: SWA's ``on_train_end`` overwrites the
 live weights with the SWA average after EarlyStopping may have restored
-the best weights (reference: sj_train.py:489-500 callback order).
-``ReduceLROnPlateau`` and the full train-state checkpoint wait for ROADMAP
-A15.
+the best weights (reference: sj_train.py:489-500 callback order). The
+full train-state checkpoint waits for ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -177,6 +176,35 @@ class LearningRateScheduler(Callback):
         lr = self.schedule(epoch)
         for group in self.loop.state.optimizer.param_groups:
             group['lr'] = lr
+
+
+class ReduceLROnPlateau(Callback):
+    """Multiply the learning rate of every parameter group by ``factor``
+    after ``patience`` epochs without a new minimum of ``monitor``, then
+    wait ``patience`` epochs again (counterpart: ``callbacks.py:208-235``,
+    mode 'min'; reference: trainer.py:278-279, the pretrain branch)."""
+
+    def __init__(self, monitor: str = 'loss', factor: float = 0.9,
+                 patience: int = 5):
+        self.monitor = monitor
+        self.factor = factor
+        self.patience = patience
+        self.best = np.inf
+        self.wait = 0
+
+    def on_epoch_end(self, epoch, logs):
+        value = logs.get(self.monitor)
+        if value is None:
+            return
+        if value < self.best:
+            self.best = value
+            self.wait = 0
+            return
+        self.wait += 1
+        if self.wait >= self.patience:
+            self.wait = 0
+            for group in self.loop.state.optimizer.param_groups:
+                group['lr'] *= self.factor
 
 
 class EvalCallback(Callback):

@@ -48,17 +48,19 @@ def _refuse_unported(config) -> None:
 
 
 class TrainLoop:
-    """Owns the TrainState and drives epochs, with Keras-style callbacks."""
+    """Owns the TrainState and drives epochs, with Keras-style callbacks.
+    ``loss_fn`` replaces ``get_loss(config)`` in the train and eval steps
+    (``state.make_grad_update``)."""
 
     def __init__(self, bundle: ModelBundle, seed: int = 0,
                  banks: Optional[Banks] = None,
-                 val_banks: Optional[Banks] = None):
+                 val_banks: Optional[Banks] = None, loss_fn=None):
         _refuse_unported(bundle.config)
         self.bundle = bundle
         self.config = bundle.config
         self.seed = seed
-        self.train_step = make_train_step(bundle)
-        self.eval_step = make_eval_step(bundle)
+        self.train_step = make_train_step(bundle, loss_fn)
+        self.eval_step = make_eval_step(bundle, loss_fn)
         self.state = init_state(bundle, seed)
         self.banks, self.val_banks = banks, val_banks
         self.stop_training = False

@@ -1,10 +1,13 @@
 """Training losses (counterpart: ``challenge_tpu/train/losses.py``;
-reference: utils.py:291-347, sj_train.py:447-461). BCE, and the se v9
-composite loss with its MAE targets, are ported."""
+reference: utils.py:291-347, sj_train.py:447-461, trainer.py:144-189).
+BCE, the se v9 composite loss with its MAE targets, and the density
+trainer's count + total-variation loss are ported."""
 
 from __future__ import annotations
 
 import torch
+
+from challenge_tpu_torch.ops.norms import safe_div
 
 KERAS_EPS = 1e-7   # Keras backend.epsilon(): probability clip for log losses
 
@@ -37,6 +40,39 @@ def se_loss(y_true, y_pred):
     }
     total = sum(w * v for w, v in zip(SE_LOSS_WEIGHTS, parts.values()))
     return total, parts
+
+
+def _abs(x):
+    """|x| with JAX's gradient, 1 at x = 0 (``select(x >= 0, g, -g)``)
+    where torch's ``abs`` gives 0. The density loss meets x = 0 wherever a
+    relu output and its label are both 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def density_loss(alpha: float = 0.8, l2: float = 1.0):
+    """The density trainer's count + total-variation loss (counterpart:
+    ``losses.py:66-101``; reference: trainer.py:144-189) as ``(y_true,
+    y_pred) -> scalar``. The last axis of [B, T, C] is 3 classes of C / 3
+    degrees each (30 = 3 x 10; 3 = 3 x 1). The count term is the MAE of
+    the time sums of the degree and class marginals, weighted alpha and
+    1 - alpha; the TV term the L1 distance of their time-normalised
+    profiles, each weighted by its true mass, times ``l2``; the mean over
+    the batch."""
+    def _loss(y_true, y_pred):
+        t_true = y_true.reshape(y_true.shape[:-1] + (3, -1))  # [B, T, 3, C/3]
+        t_pred = y_pred.reshape(y_pred.shape[:-1] + (3, -1))
+        loss = 0.0
+        tv = 0.0
+        for w, axis in ((alpha, -2), (1 - alpha, -1)):  # degrees, classes
+            true, pred = t_true.sum(dim=axis), t_pred.sum(dim=axis)
+            s_true, s_pred = true.sum(dim=1), pred.sum(dim=1)
+            loss = loss + w * _abs(s_true - s_pred).mean(dim=-1)
+            n_true = safe_div(true, s_true[:, None])
+            n_pred = safe_div(pred, s_pred[:, None])
+            tv = tv + w * (_abs(n_true - n_pred).sum(dim=1)
+                           * s_true).mean(dim=1)
+        return (loss + l2 * tv).mean()
+    return _loss
 
 
 def get_loss(config):

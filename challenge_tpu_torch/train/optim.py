@@ -1,6 +1,6 @@
-"""Gradient clipping, the Keras Adam rule and the LR schedule (counterpart:
-``challenge_tpu/train/optim.py``; reference: sj_train.py:133-155, 434-442,
-utils.py:350-366)."""
+"""Gradient clipping, the Keras Adam and AdaBelief rules and the LR schedule
+(counterpart: ``challenge_tpu/train/optim.py``; reference:
+sj_train.py:133-155, 434-442, utils.py:140-288, 350-366)."""
 
 from __future__ import annotations
 
@@ -59,7 +59,15 @@ def adaptive_clip_grad(params, grads, clip_factor: float = 0.01,
     return out
 
 
-# ------------------------------------------------------------- Keras Adam
+# ------------------------------------------------ Keras Adam, AdaBelief
+def _bias_correction(step: int, b1: float, b2: float) -> float:
+    """sqrt(1 - b2^t) / (1 - b1^t) in float32, as the JAX rules compute it
+    from ``count.astype(float32)``."""
+    t = np.float32(step)
+    return float(np.sqrt(np.float32(1) - np.float32(b2) ** t)
+                 / (np.float32(1) - np.float32(b1) ** t))
+
+
 class KerasAdam(torch.optim.Optimizer):
     """``Adam(lr, clipvalue=...)`` with Keras semantics (reference:
     sj_train.py:434-435): gradients are clipped elementwise at
@@ -72,7 +80,8 @@ class KerasAdam(torch.optim.Optimizer):
     ``torch.optim.Adam`` adds eps to the corrected sqrt(v_hat) instead, an
     effective eps ~31x larger at step 1. The step count t is kept per
     parameter like torch's optimizers; ``m`` and ``v`` live in
-    ``self.state[p]``."""
+    ``self.state[p]``. :class:`AdaBelief` changes only the second moment,
+    in :meth:`second_moment`."""
 
     def __init__(self, params, lr: float = 1e-3, clipvalue=None,
                  beta_1: float = 0.9, beta_2: float = 0.999,
@@ -80,6 +89,13 @@ class KerasAdam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, clipvalue=clipvalue,
                                       beta_1=beta_1, beta_2=beta_2,
                                       epsilon=epsilon))
+
+    def second_moment(self, state, g, b2: float):
+        """Update ``state['v']`` for the clipped gradient ``g`` (``m`` is
+        already this step's); returns the tensor under the root."""
+        v = state['v']
+        v.mul_(b2).add_((1 - b2) * g.square())
+        return v
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -98,25 +114,51 @@ class KerasAdam(torch.optim.Optimizer):
                     state['m'] = torch.zeros_like(p)
                     state['v'] = torch.zeros_like(p)
                 state['step'] += 1
-                # float32 like the JAX rule (count.astype(float32))
-                t = np.float32(state['step'])
-                corr = float(np.sqrt(np.float32(1) - np.float32(b2) ** t)
-                             / (np.float32(1) - np.float32(b1) ** t))
-                m, v = state['m'], state['v']
+                corr = _bias_correction(state['step'], b1, b2)
+                m = state['m']
                 m.mul_(b1).add_((1 - b1) * g)
-                v.mul_(b2).add_((1 - b2) * g.square())
+                v = self.second_moment(state, g, b2)
                 p.add_(corr * m / (v.sqrt() + group['epsilon']) * -lr)
         return None
 
 
+class AdaBelief(KerasAdam):
+    """AdaBelief (counterpart: ``scale_by_adabelief``, optim.py:57-90;
+    reference: utils.py:140-288) in the same stack: clipvalue first, then
+    Keras Adam's rule with the second moment tracking the belief
+    (g - m)^2, ``m`` being this step's first moment:
+
+        v = b2*v + (1-b2)*(g - m)^2
+
+    eps stays outside the root. With ``amsgrad`` the root is taken of
+    ``vhat = max(vhat, v)``, kept in ``self.state[p]['vhat']``."""
+
+    def __init__(self, params, lr: float = 1e-3, clipvalue=None,
+                 beta_1: float = 0.9, beta_2: float = 0.999,
+                 epsilon: float = 1e-7, amsgrad: bool = False):
+        super().__init__(params, lr, clipvalue, beta_1, beta_2, epsilon)
+        self.amsgrad = amsgrad
+
+    def second_moment(self, state, g, b2: float):
+        v = state['v']
+        v.mul_(b2).add_((1 - b2) * (g - state['m']).square())
+        if not self.amsgrad:
+            return v
+        if 'vhat' not in state:
+            state['vhat'] = torch.zeros_like(v)
+        torch.maximum(state['vhat'], v, out=state['vhat'])
+        return state['vhat']
+
+
 def make_optimizer(config, params) -> torch.optim.Optimizer:
     """The reference's optimizer stack for ``config.optimizer`` (sj_train.py:
-    434-442); only adam is ported."""
-    if config.optimizer != 'adam':
-        raise NotImplementedError(
-            f'optimizer {config.optimizer!r} is not ported yet (ROADMAP '
-            + ('A13)' if config.optimizer == 'adabelief' else 'A15)'))
-    return KerasAdam(params, lr=config.lr, clipvalue=config.clipvalue)
+    434-442, trainer.py:239-246); adam and adabelief are ported."""
+    if config.optimizer == 'adam':
+        return KerasAdam(params, lr=config.lr, clipvalue=config.clipvalue)
+    if config.optimizer == 'adabelief':
+        return AdaBelief(params, lr=config.lr, clipvalue=config.clipvalue)
+    raise NotImplementedError(
+        f'optimizer {config.optimizer!r} is not ported yet (ROADMAP A15)')
 
 
 def custom_scheduler(d_model: float, warmup_steps: float = 4000,

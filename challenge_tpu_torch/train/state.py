@@ -5,10 +5,11 @@ sj_train.py:158-188).
 The step is the reference's: training-mode forward (batch-statistics BN,
 running statistics updated), loss, gradients, adaptive gradient clipping
 (vad and se families), the se cascade's freeze mask, then the optimizer
-(clipvalue + Keras Adam). As in the JAX package it is split at the
-gradient (``make_grad_update``), so the gradients can be inspected or,
-later, accumulated. Metrics read the first output and target of a
-multi-output model, the se cascade's class head (state.py:60).
+(clipvalue + Keras Adam, or AdaBelief for the density trainer). As in the
+JAX package it is split at the gradient (``make_grad_update``), so the
+gradients can be inspected or, later, accumulated. Metrics read the first
+output and target of a multi-output model, the se cascade's class head
+(state.py:60).
 """
 
 from __future__ import annotations
@@ -58,8 +59,18 @@ def _metrics(metric_fns, loss, parts, y, out):
     return metrics
 
 
-def make_grad_update(bundle: ModelBundle):
-    """The train step split at the gradient boundary. Returns
+def _loss_of(loss_fn, y, out, module):
+    """``loss_fn(y, out)``, or ``loss_fn(y, out, module)`` for a loss that
+    carries ``needs_params`` (a kernel regularizer, state.py:94-97)."""
+    if getattr(loss_fn, 'needs_params', False):
+        return loss_fn(y, out, module)
+    return loss_fn(y, out)
+
+
+def make_grad_update(bundle: ModelBundle, loss_fn=None):
+    """The train step split at the gradient boundary. ``loss_fn`` is
+    ``(y, out) -> (loss, parts)``, by default ``get_loss(config)`` (see
+    :func:`_loss_of` for one that needs the module). Returns
     ``(grad_fn, update_fn)``:
 
     * ``grad_fn(module, batch, gen=None) -> (grads, metrics)``:
@@ -77,7 +88,7 @@ def make_grad_update(bundle: ModelBundle):
     (state.py:115-127), so Keras Adam's moments of those weights stay 0
     and their update is exactly 0: the weights stay bit-identical."""
     config = bundle.config
-    loss_fn = get_loss(config)
+    loss_fn = loss_fn or get_loss(config)
     metric_fns = metrics_lib.batch_metrics(config)
     use_agc = config.model_type in ('vad', 'se')
     transposed = transposed_weights(bundle.module)
@@ -89,7 +100,7 @@ def make_grad_update(bundle: ModelBundle):
         x, y = batch
         module.train()
         out = module(x, gen) if needs_gen else module(x)
-        loss, parts = loss_fn(y, out)
+        loss, parts = _loss_of(loss_fn, y, out, module)
         grads = torch.autograd.grad(loss, list(module.parameters()))
         with torch.no_grad():
             return grads, _metrics(metric_fns, loss, parts, y, out)
@@ -109,10 +120,11 @@ def make_grad_update(bundle: ModelBundle):
     return grad_fn, update_fn
 
 
-def make_train_step(bundle: ModelBundle):
+def make_train_step(bundle: ModelBundle, loss_fn=None):
     """``train_step(state, (x, y), gen=None) -> metrics``; updates
-    ``state`` in place. ``gen`` as for ``grad_fn``."""
-    grad_fn, update_fn = make_grad_update(bundle)
+    ``state`` in place. ``gen`` and ``loss_fn`` as for
+    :func:`make_grad_update`."""
+    grad_fn, update_fn = make_grad_update(bundle, loss_fn)
 
     def train_step(state: TrainState, batch, gen=None):
         grads, metrics = grad_fn(state.module, batch, gen)
@@ -122,10 +134,12 @@ def make_train_step(bundle: ModelBundle):
     return train_step
 
 
-def make_eval_step(bundle: ModelBundle):
-    """Validation step: inference-mode forward + loss + metrics."""
+def make_eval_step(bundle: ModelBundle, loss_fn=None):
+    """Validation step: inference-mode forward + loss + metrics; the loss
+    of a ``needs_params`` ``loss_fn`` includes its penalty, as JAX's
+    does."""
     config = bundle.config
-    loss_fn = get_loss(config)
+    loss_fn = loss_fn or get_loss(config)
     metric_fns = metrics_lib.batch_metrics(config)
 
     @torch.no_grad()
@@ -133,7 +147,7 @@ def make_eval_step(bundle: ModelBundle):
         x, y = batch
         state.module.eval()
         out = state.module(x)
-        loss, parts = loss_fn(y, out)
+        loss, parts = _loss_of(loss_fn, y, out, state.module)
         return _metrics(metric_fns, loss, parts, y, out)
 
     return eval_step

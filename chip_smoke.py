@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
-                                     # vad v8, se, eff B0 v1 and vad v9
-                                     # steps
+                                     # vad v8, se, eff B0 v1, density B4
+                                     # and vad v9 steps
     python3 chip_smoke.py --cudnn-ab # also the model step with cuDNN's
                                      # algorithm timing off and on, each in
                                      # a fresh process (off, on, on, off)
@@ -31,11 +31,14 @@ without the result line:
    tile, and misaligned ranges: background windows at odd row offsets and
    clip banks of 13 and 25 rows, at 1,028 and 514 columns, batch 6 and
    batch 1, so that staged rows start at every residue mod 16 bytes the
-   element size allows);
+   element size allows), and on the density trainer's batches (12 x 2,048
+   frames, 10 voice and 6 noise slots) from banks built for 2,048 frames,
+   whose 1,875-frame backgrounds are wrapped;
 3b. the same for the bfloat16 and int8 magnitude kernels, on banks built
-   from the same sources and on the adversarial cases with their banks
-   rounded or quantized: bit for bit (both upcast exactly, sum in float32
-   in order, take the IEEE root and round it once to bfloat16);
+   from the same sources (the density batches included) and on the
+   adversarial cases with their banks rounded or quantized: bit for bit
+   (both upcast exactly, sum in float32 in order, take the IEEE root and
+   round it once to bfloat16);
 3c. the same for the three flat-complex kernels (the raw window, rounded
    once to bfloat16 for the low-precision banks), bit for bit, on the main
    path's draws, the adversarial cases and the se triple's calls: the mix
@@ -52,8 +55,10 @@ without the result line:
    masks, eval masks (all ones) and the filter columns, on batch 1, on a
    sample whose time mask zeroes every frame (its min and max must be 0),
    on the adversarial cases, and on draws at 40 and 128 mel bins (each
-   with its own band), 500 frames (a ragged last row tile) and batch 48
-   (more row tiles than the card holds blocks at once);
+   with its own band), 500 frames (a ragged last row tile), batch 48
+   (more row tiles than the card holds blocks at once) and the density
+   trainer's batch, 12 x 2,048 frames with its column mask (no filter
+   columns), on banks built for 2,048 frames;
 4. check the port on the card against the port on the CPU on a small
    input: synthesis bit for bit, log-mel within 1e-5 mean abs error,
    labels exact, and one training-mode forward and loss within 1e-5
@@ -73,6 +78,16 @@ without the result line:
    one training-mode forward and BCE loss of each head (v1, v3, v5, v6,
    v7), every copy given the same keep masks of stochastic depth (drawn
    once from a CPU generator), held to float64 as in 4c;
+4f. the density model on a small input (batch 2, B0 with the density head
+   and 2 gated layers, 40 mels, 256 frames): one training-mode forward
+   and one training step (``density_loss``, the kernel penalty,
+   AdaBelief with clipvalue), the same keep masks on every copy: the
+   forward and its loss on the card within 1e-5 of the peak from a float64
+   CPU copy; the step's gradients within 2e-5 of the peak over all tensors
+   and 5e-5 of each tensor's own peak; the update moving every tensor that
+   has a gradient and no other, the card's new weights within 4 float32
+   epsilons of (|weight| + lr) from AdaBelief in float64 on the card's own
+   weights and gradients;
 5. the main path: ``get_model(Config(model_type='vad', v=8))`` at full width
    (base 48, td_dim 1024, 80 mels, 512 frames, batch 12),
    ``DevicePipeline`` and ``TrainLoop.fit`` for 5 training steps and 1
@@ -115,6 +130,21 @@ without the result line:
    epoch's dropout generator must have been drawn (stochastic depth ran on
    the card); each run's peak device memory above what the earlier phases
    hold is kept;
+5f. this slice's main path, the density trainer at its defaults
+   (EfficientNetB4 with the density head, 80 mels, 2,048 frames, batch
+   12, n_layers 0, AdaBelief at lr 1e-4 with clipvalue 0.01, the count +
+   TV loss with the l2 1e-6 kernel penalty, label multiplier 10) with
+   ``--n_chan 2``, on float32 banks built for 2,048 frames:
+   ``get_density_model``, ``DevicePipeline(variant='density')`` and
+   ``TrainLoop(loss_fn=...).fit`` for 5 training steps and 1 validation
+   step (the float32 magnitude kernel once a batch and no other kernel;
+   finite logs whose only metric is cos_sim), then 2 steps through
+   ``FeatureFn(variant='density', fused_mel=True)`` (the float32 mel
+   kernel once a batch), the fused and unfused features of one generator
+   state (rtol 1e-4, atol 1e-5, labels equal, as
+   tests/test_pallas_synth.py:553-558 holds JAX's), and the step (10
+   steps), the batch pipeline and the model step timed as in phase 6,
+   with the run's peak device memory, printed on the ``DENSITY`` line;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the se triple's: its sources read once, three windows written), the
@@ -177,7 +207,15 @@ without the result line:
    magnitude kernel once a batch (54 times) and write the trio and a
    3-row CSV; ``cli.eval.main --p`` on it, timed (``eff_eval_s``), and
    ``evaluate()`` with a B0 v5 model, which scores its coarse grid (8
-   frames a window), 6 finite ERs each.
+   frames a window), 6 finite ERs each;
+7e. the density trainer's CLI chain in that directory:
+   ``cli.trainer.main`` at its defaults with ``--n_chan 2 --bank_dtype
+   int8`` for 3 epochs of 2 steps (16 validation steps each), which must
+   launch the int8 magnitude kernel once a batch (54 times) and write
+   ``{name}.h5``, ``{name}_SWA.h5`` and a 3-row ``{name}.log`` of cos_sim
+   and val_cos_sim; then the same name with ``--pretrain True`` for 2
+   epochs (36 launches), which loads ``{name}.h5`` and cuts the learning
+   rate on plateaus instead of the warmup schedule; both timed.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -186,7 +224,9 @@ them, one JSON object ``{"kernels": [...]}`` and, last,
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -204,7 +244,7 @@ import torch
 from challenge_tpu_torch import (
     Config, DevicePipeline, TrainLoop, build_banks, get_model)
 from challenge_tpu_torch.cli import eval as eval_cli
-from challenge_tpu_torch.cli import sj_train
+from challenge_tpu_torch.cli import sj_train, trainer
 from challenge_tpu_torch.data import mixture
 from challenge_tpu_torch.data.labels import (
     label_downsample, speech_enhancement_preprocess)
@@ -212,6 +252,7 @@ from challenge_tpu_torch.data.pipeline import FeatureFn
 from challenge_tpu_torch.data.specset import FLAT_DTYPES
 from challenge_tpu_torch.evaluate import events, infer
 from challenge_tpu_torch.models.layers import BatchNorm
+from challenge_tpu_torch.models.registry import ModelBundle, get_density_model
 from challenge_tpu_torch.models.senet import SECascade
 from challenge_tpu_torch.models.vad import VADModel
 from challenge_tpu_torch.ops import cuda
@@ -224,6 +265,8 @@ from challenge_tpu_torch.ops.synth import (
     synthesize_se, synthesize_se_plain)
 from challenge_tpu_torch.train.checkpoint import load_weights
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
+from challenge_tpu_torch.train.optim import make_optimizer
+from challenge_tpu_torch.train.state import TrainState, make_grad_update
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
@@ -235,9 +278,19 @@ SE_CLI_STEPS = 2                   # phase 7b, per epoch
 EFF_STEPS, EFF_VAL_STEPS = 5, 1    # phase 5e's B0 v1 run
 EFF_HEAD_STEPS = 2                 # the other heads and B7 in 5e
 EFF_B7_TIMED_STEPS = 5             # B7 v6's step time, right after its run
+DENSITY_STEPS, DENSITY_VAL_STEPS = 5, 1    # phase 5f through kernel B1
+DENSITY_FUSED_STEPS = 2                    # then through kernel B4
+DENSITY_TIMED_STEPS = 10                   # its step time, right after
+DENSITY_PRETRAIN_EPOCHS = 2                # phase 7e's second run
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
+DENSITY_GRAD_TOL = 2e-5        # phase 4f: gradients to float64, times the
+                               # peak (the CPU's float32 reads 9.7e-6)
+DENSITY_LEAF_TOL = 5e-5        # phase 4f: each tensor's, times its own
+                               # peak (the CPU's float32 reads 2.0e-5)
+DENSITY_LEAF_FLOOR = 1e-6      # phase 4f: tensors held to their own peak
+DENSITY_STEP_ULPS = 4.0        # phase 4f: AdaBelief against float64
 MIN_GAP = 1e-3                 # phase 8: least logit gap at the threshold
 SHARP = 8.0                    # phase 8: logits next to the threshold, after
                                # scaling (sigmoid(-8) = 3.4e-4)
@@ -505,13 +558,15 @@ def draws_head(d, n: int):
                                       for x in d[1:]))
 
 
-def mel_checks(dev, banks, main_draws, cases) -> dict:
+def mel_checks(dev, banks, main_draws, cases, banks2048) -> dict:
     """Phase 3d: each mel kernel against its plain version, mel and
     min/max, on the main path's draws with training masks, eval masks
     (all ones) and the filter columns, on batch 1, on a sample whose time
     mask zeroes every frame, on the adversarial cases (rounded or
-    quantized for the low-precision banks), and on draws at 40 and 128
-    mel bins, 500 frames and batch 48."""
+    quantized for the low-precision banks), on draws at 40 and 128 mel
+    bins, 500 frames and batch 48, and on the density trainer's batch
+    (12 x 2,048 frames, its training masks without filter columns) from
+    ``banks2048``, built for 2,048 frames."""
     cfg = Config(model_type='vad', v=9, name='filter')
     fn = FeatureFn(cfg, device=dev, fused_mel=True)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -564,14 +619,24 @@ def mel_checks(dev, banks, main_draws, cases) -> dict:
             tmask, fmask = f.masks(gen)
             e[case] = mel_diff(mixture.synth_args(banks[name], d), f.melm,
                                tmask, fmask.repeat(1, 2))
+        c = density_config()
+        f = FeatureFn(c, device=dev, fused_mel=True, variant='density')
+        d = mixture.draw(draw_gen, banks2048['float32'], c.batch_size,
+                         c.n_frame, max_voices=c.max_voices,
+                         max_noises=c.max_noises, snr=c.snr)
+        tmask, fmask = f.masks(gen)
+        e['density2048'] = mel_diff(mixture.synth_args(banks2048[name], d),
+                                    f.melm, tmask, fmask.repeat(1, 2))
         errs[MEL_KERNELS[dt]] = e
     return errs
 
 
-def feature_iter(banks, cfg, training: bool = True, fused_mel: bool = True):
-    """Batches of ``FeatureFn(cfg, training, fused_mel=...)`` drawn with a
-    ``torch.Generator`` seeded as ``DevicePipeline`` seeds its own."""
-    fn = FeatureFn(cfg, training, fused_mel=fused_mel)
+def feature_iter(banks, cfg, training: bool = True, fused_mel: bool = True,
+                 variant: str = 'sj'):
+    """Batches of ``FeatureFn(cfg, training, fused_mel=..., variant=...)``
+    drawn with a ``torch.Generator`` seeded as ``DevicePipeline`` seeds
+    its own."""
+    fn = FeatureFn(cfg, training, fused_mel=fused_mel, variant=variant)
     gen = torch.Generator(device=fn.device)
     gen.manual_seed(cfg.seed + (0 if training else 1))
     while True:
@@ -908,6 +973,263 @@ def eff_cli_chain(d: str) -> dict:
     return res
 
 
+class Tee(io.StringIO):
+    """A text buffer that also writes everything to ``stream``."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self.stream = stream
+
+    def write(self, text):
+        self.stream.write(text)
+        return super().write(text)
+
+
+def density_args(extra=()):
+    """The density trainer's flags at their defaults, with ``--n_chan 2``
+    (at its default 1 it refuses to train, ROADMAP C9)."""
+    return trainer.build_args().parse_args(['--name', 'dens', '--n_chan',
+                                            '2', *extra])
+
+
+def density_config() -> Config:
+    return trainer.to_config(density_args())
+
+
+def density_reference_check(dev) -> dict:
+    """Phase 4f: the density model on the card against the CPU on a small
+    input (batch 2, B0 with the density head and 2 gated layers, 40 mels,
+    256 frames), every copy with the same keep masks: one training-mode
+    forward and its loss (the count + TV loss with the kernel penalty),
+    then one training step with AdaBelief and clipvalue.
+
+    * The forward and loss on the card's float32 against a float64 CPU
+      copy: within ``SCORE_TOL`` of their peak.
+    * The step's gradients against the float64 copy's: within
+      ``DENSITY_GRAD_TOL`` of the peak over all tensors, and within
+      ``DENSITY_LEAF_TOL`` of each tensor's own peak. A tensor whose
+      float64 peak is below ``DENSITY_LEAF_FLOOR`` of the peak over all
+      is held to the first bound only: the biases of the BNs that feed a
+      1x1 conv and another BN, whose shift that BN's batch mean takes
+      away, have gradients of about 1e-14 in float64 and of float32
+      rounding noise on the card.
+    * The update: every tensor with a gradient moves and no other, and
+      the card's new weights equal AdaBelief's in float64 from the card's
+      own weights and gradients within ``DENSITY_STEP_ULPS`` float32
+      epsilons of (|weight| + lr). The update is not held to the float64
+      copy's: AdaBelief moves every element whose gradient is above about
+      3e-6 by about the learning rate, whatever its size, so float32
+      rounding noise on a gradient that is 0 in float64 moves a weight by
+      a good part of it (ROADMAP C2)."""
+    cpu = torch.device('cpu')
+    ns = density_args()
+    cfg = trainer.to_config(ns).replace(model='EfficientNetB0', n_layers=2,
+                                        n_mels=40, n_frame=256, batch_size=2)
+    loss_fn = trainer.make_loss_fn(ns)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 256, 2),
+                                             dtype=np.float32))
+    y = torch.from_numpy(rng.random((2, 8, 3), dtype=np.float32) * 4)
+    m_c = get_density_model(cfg, device=cpu, seed=4).module
+    fix_keep_masks(m_c, x, torch.Generator().manual_seed(4))
+    models = {'cpu': m_c, 'card': copy.deepcopy(m_c).to(dev),
+              'f64': copy.deepcopy(m_c).double()}
+    names = [n for n, _ in m_c.named_parameters()]
+    fwd, grad, step_gap = {}, {}, {}
+    for key, m in models.items():
+        where = dev if key == 'card' else cpu
+        dt = torch.float64 if key == 'f64' else torch.float32
+        xb, yb = x.to(where, dt), y.to(where, dt)
+        with torch.no_grad():
+            o = m.train()(xb, torch.Generator(device=where))
+            loss, _ = loss_fn(yb, o, m)
+        fwd[key] = torch.cat([o.double().cpu().flatten(),
+                              loss.double().cpu().reshape(1)])
+        bundle = ModelBundle(m, (40, 256, 2), cfg, where,
+                             needs_dropout_gen=True)
+        grad_fn, update_fn = make_grad_update(bundle, loss_fn)
+        grads, _ = grad_fn(m, (xb, yb), torch.Generator(device=where))
+        grad[key] = [g.double().cpu() for g in grads]
+        before = [p.detach().clone() for p in m.parameters()]
+        update_fn(TrainState(m, make_optimizer(cfg, m.parameters())), grads)
+        # every tensor with a gradient moves (a dropped block's do not)
+        wrong = [n for n, p, b, g in zip(names, m.parameters(), before,
+                                         grads)
+                 if torch.equal(p, b) == bool(g.any())]
+        if wrong:
+            raise AssertionError(f'density step on {key}: {wrong} moved '
+                                 'without a gradient or stayed with one')
+        if key == 'f64':
+            continue
+        # AdaBelief in float64 from this copy's weights and gradients
+        ref = [torch.nn.Parameter(b.double().cpu()) for b in before]
+        for r, g in zip(ref, grad[key]):
+            r.grad = g
+        make_optimizer(cfg, ref).step()
+        eps = torch.finfo(torch.float32).eps
+        step_gap[key] = max(float(((p.detach().double().cpu() - r).abs()
+                                   / (eps * (r.abs() + cfg.lr))).max())
+                            for p, r in zip(m.parameters(), ref))
+    peak = max(float(r.abs().max()) for r in grad['f64'])
+    leaf = {}
+    for k in ('cpu', 'card'):
+        leaf[k] = max((float((g - r).abs().max() / r.abs().max()), n)
+                      for n, g, r in zip(names, grad[k], grad['f64'])
+                      if r.abs().max() >= DENSITY_LEAF_FLOOR * peak)
+    gaps = {'forward': {}, 'gradient': {}}
+    for k in ('cpu', 'card'):
+        gaps['forward'][k] = float((fwd[k] - fwd['f64']).abs().max()
+                                   / fwd['f64'].abs().max())
+        gaps['gradient'][k] = max(float((g - r).abs().max())
+                                  for g, r in zip(grad[k], grad['f64'])) / peak
+    gaps['worst_leaf'] = {k: {'gap': v[0], 'tensor': v[1]}
+                          for k, v in leaf.items()}
+    gaps['step_ulps'] = step_gap
+    log('card vs CPU density B0, small input: forward and loss and the '
+        'step\'s gradients (over the peak, and the worst tensor over its '
+        'own peak), gaps to float64; the update against float64 AdaBelief '
+        f'on the same gradients, in float32 epsilons {json.dumps(gaps)}')
+    for what, got, limit in (
+            ('forward', gaps['forward']['card'], SCORE_TOL),
+            ('gradient', gaps['gradient']['card'], DENSITY_GRAD_TOL),
+            ('worst tensor gradient', leaf['card'][0], DENSITY_LEAF_TOL),
+            ('AdaBelief update', step_gap['card'], DENSITY_STEP_ULPS)):
+        if not got <= limit:
+            raise AssertionError(f'card density {what} beyond the '
+                                 f'tolerance {limit}: {gaps}')
+    return {'density_gaps': gaps}
+
+
+def density_main_path(banks) -> dict:
+    """Phase 5f: the density trainer's defaults (``density_config``) on
+    float32 banks built for 2,048 frames: ``TrainLoop(loss_fn=...)`` over
+    ``DevicePipeline(variant='density')`` for 5 training steps and 1
+    validation step, the float32 magnitude kernel once a batch and no
+    other kernel, finite logs with cos_sim as the only metric, stochastic
+    depth drawn; then 2 steps through ``FeatureFn(variant='density',
+    fused_mel=True)``, the float32 mel kernel once a batch; the fused and
+    unfused features of one generator state; then the step, the batch
+    pipeline and the model step timed (``wall_ms``, as phase 6 times the
+    others) and the peak device memory above the earlier phases'."""
+    start = time.perf_counter()
+    ns = density_args()
+    cfg = trainer.to_config(ns)
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loop = TrainLoop(get_density_model(cfg, seed=cfg.seed), seed=cfg.seed,
+                     loss_fn=trainer.make_loss_fn(ns))
+    params = list(loop.state.module.parameters())
+    res['density_params'] = sum(p.numel() for p in params)
+    res['density_tensors'] = len(params)
+    pipes = [iter(DevicePipeline(banks, cfg, training, variant='density',
+                                 n_classes=ns.n_classes))
+             for training in (True, False)]
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = loop.fit(pipes[0], epochs=1, steps_per_epoch=DENSITY_STEPS,
+                    validation_iter=pipes[1],
+                    validation_steps=DENSITY_VAL_STEPS, verbose=0)
+    torch.cuda.synchronize()
+    # the first steps at each conv shape include cuDNN's algorithm search
+    res['density_first_fit_s'] = time.perf_counter() - t0
+    launches = {'unfused': dict(cuda.LAUNCHES)}
+    check_launches('density B4, float32 banks', launches['unfused'],
+                   {KERNELS[torch.float32][0]: DENSITY_STEPS
+                    + DENSITY_VAL_STEPS})
+    logs = hist[0]
+    if set(logs) != {'loss', 'cos_sim', 'val_loss', 'val_cos_sim', 'time'} \
+            or not all(map(math.isfinite, logs.values())):
+        raise AssertionError(f'density logs {logs}')
+    if torch.equal(loop.gen.get_state(), loop.dropout_gen(0).get_state()):
+        raise AssertionError('density: stochastic depth drew nothing')
+    res['density_logs'] = logs
+    fused = feature_iter(banks, cfg, fused_mel=True, variant='density')
+    cuda.reset_launch_counts()
+    hist = loop.fit(fused, epochs=1, steps_per_epoch=DENSITY_FUSED_STEPS,
+                    verbose=0)
+    torch.cuda.synchronize()
+    launches['fused'] = dict(cuda.LAUNCHES)
+    check_launches('density B4 fused mel, float32 banks', launches['fused'],
+                   {MEL_KERNELS[torch.float32]: DENSITY_FUSED_STEPS})
+    if not math.isfinite(hist[0]['loss']):
+        raise AssertionError(f'density fused: {hist[0]}')
+    res['density_launches'] = launches
+    # one batch of each path from the same generator state
+    out = []
+    for fused_mel in (False, True):
+        gen = torch.Generator(device=banks.backgrounds.flat.device)
+        out.append(FeatureFn(cfg, fused_mel=fused_mel, variant='density')(
+            gen.manual_seed(7), banks))
+    (xu, yu), (xf, yf) = out
+    torch.testing.assert_close(xf, xu, rtol=1e-4, atol=1e-5)
+    if not torch.equal(yf, yu) or xu.shape != (cfg.batch_size, cfg.n_mels,
+                                                cfg.n_frame, 2) \
+            or yu.shape != (cfg.batch_size, cfg.n_frame // 32, 3):
+        raise AssertionError(f'density fused vs unfused: {xu.shape} '
+                             f'{yu.shape}, labels equal '
+                             f'{torch.equal(yf, yu)}')
+    res['density_fused_vs_unfused_max_abs'] = float((xf - xu).abs().max())
+    it = pipes[0]
+    res['density_step_ms'] = wall_ms(lambda: loop.run_epoch(
+        it, DENSITY_TIMED_STEPS, training=True), 1) / DENSITY_TIMED_STEPS
+    res['density_pipeline_ms'] = wall_ms(lambda: next(it), 10)
+    batch = next(it)
+    gen = torch.Generator(device=batch[0].device).manual_seed(0)
+    res['density_model_step_ms'] = wall_ms(
+        lambda: loop.train_step(loop.state, batch, gen), 10)
+    res['density_peak_gib'] = (torch.cuda.max_memory_allocated()
+                               - base) / 2**30
+    if '--profile' in sys.argv:
+        profile_steps(loop, it, 5, 'DENSITY_PROFILE')
+    res['density_5f_s'] = time.perf_counter() - start
+    log(f'density main path: {json.dumps(res)}')
+    log(f'phase 5f: {res["density_5f_s"]:.3f} s')
+    return res
+
+
+def density_cli_chain(d: str) -> dict:
+    """Phase 7e, in the CLI chain's directory ``d``: ``cli.trainer`` at its
+    defaults with ``--n_chan 2 --bank_dtype int8`` for 3 epochs of 2
+    steps, the int8 magnitude kernel once a batch; ``{name}.h5``,
+    ``_SWA.h5`` and a 3-row ``{name}.log`` of cos_sim only; then
+    ``--pretrain True`` for 2 epochs, which loads ``{name}.h5`` and takes
+    ReduceLROnPlateau. Both runs timed."""
+    start = time.perf_counter()
+    files = Config()
+    base = ['--datapath', d, '--bank_dtype', 'int8', '--steps_per_epoch',
+            str(SE_CLI_STEPS)]
+    for flag in ('background_sounds', 'voices', 'labels', 'noises',
+                 'test_background_sounds', 'test_voices', 'test_labels'):
+        base += [f'--{flag}', getattr(files, flag)]
+    res = {'density_cli_s': [], 'density_int8_launches': []}
+    for epochs, extra in ((CLI_EPOCHS, []),
+                          (DENSITY_PRETRAIN_EPOCHS, ['--pretrain', 'True'])):
+        batches = epochs * (SE_CLI_STEPS + CLI_VAL_STEPS)
+        with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+            run, counts, secs = run_cli(
+                ['--name', 'dens', '--n_chan', '2', '--epochs', str(epochs)]
+                + base + extra, 'synth_mag_int8', batches, main=trainer.main)
+        res['density_cli_s'].append(secs)
+        res['density_int8_launches'].append(counts)
+        for f in (run + '.h5', run + '_SWA.h5', run + '.log'):
+            if not os.path.exists(f):
+                raise AssertionError(f'missing {f}')
+        with open(run + '.log') as f:
+            rows = f.read().strip().splitlines()
+        header = rows[0].split(',')
+        if len(rows) != 1 + CLI_EPOCHS + (epochs if extra else 0) \
+                or not {'cos_sim', 'val_cos_sim'} <= set(header) \
+                or {'er', 'f1_score', 'val_er'} & set(header):
+            raise AssertionError(f'{run}.log: {rows}')
+        if extra and 'loaded pretrained model' not in out.getvalue():
+            raise AssertionError('the pretrain run did not load its weights')
+    res['density_cli_batches'] = CLI_EPOCHS * (SE_CLI_STEPS + CLI_VAL_STEPS)
+    res['density_7e_s'] = time.perf_counter() - start
+    log(f'phase 7e: {res["density_7e_s"]:.3f} s')
+    return res
+
+
 def gpu_ms(fn, arg_list, reps: int) -> float:
     """Device milliseconds per call of ``fn`` over ``reps`` calls cycling
     through ``arg_list``. The card first sleeps while the host queues
@@ -1206,13 +1528,13 @@ def write_spec_sets(d: str, train_src, test_src) -> None:
     np.save(os.path.join(d, cfg.test_labels), tlabels)
 
 
-def run_cli(argv, kernel: str, batches: int):
-    """``cli.sj_train.main(argv)`` with the launch counts set to 0 just
-    before and read just after; ``kernel`` must have launched once a
-    batch. Returns (run name, counts, wall seconds)."""
+def run_cli(argv, kernel: str, batches: int, main=sj_train.main):
+    """``main(argv)`` (by default ``cli.sj_train``'s) with the launch
+    counts set to 0 just before and read just after; ``kernel`` must have
+    launched once a batch. Returns (run name, counts, wall seconds)."""
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    run = sj_train.main(argv)
+    run = main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(cuda.LAUNCHES)
@@ -1311,6 +1633,7 @@ def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
             res.update(se_cli_chain(d))
             res.update(chan_cli_chain(d, chan4_model))
             res.update(eff_cli_chain(d))
+            res.update(density_cli_chain(d))
         finally:
             os.chdir(cwd)
     return res
@@ -1493,7 +1816,13 @@ def main(argv) -> int:
     banks = {name: build_banks(*src, n_frame=512, flat_dtype=name)
              for name in FLAT_DTYPES}
     torch.cuda.synchronize()
-    for name, bk in banks.items():
+    # the same sources for the density trainer's 2,048-frame windows:
+    # its backgrounds of 1,875 frames are wrapped
+    banks2048 = {name: build_banks(*src, n_frame=2048, flat_dtype=name)
+                 for name in FLAT_DTYPES}
+    torch.cuda.synchronize()
+    for name, bk in [*banks.items(), *((f'{k} (2,048 frames)', v)
+                                       for k, v in banks2048.items())]:
         nbytes = sum(t.numel() * t.element_size() for b in
                      (bk.backgrounds, bk.voices, bk.noises)
                      for t in (b.flat, b.lens, b.pos_mask, b.flat_scale)
@@ -1508,11 +1837,23 @@ def main(argv) -> int:
                                cfg.n_frame, max_voices=cfg.max_voices,
                                max_noises=cfg.max_noises, snr=cfg.snr)
                   for _ in range(16)]
+    # the density trainer's batches: 12 x 2,048 frames on the wrapped
+    # backgrounds of banks2048, 10 voice and 6 noise slots
+    dcfg = density_config()
+    dgen = torch.Generator(device=dev).manual_seed(5)
+    density_draws = [mixture.draw(dgen, banks2048['float32'],
+                                  dcfg.batch_size, dcfg.n_frame,
+                                  max_voices=dcfg.max_voices,
+                                  max_noises=dcfg.max_noises, snr=dcfg.snr)
+                     for _ in range(2)]
     cases = adversarial_cases(dev)
     errs = {}
     for name, dt in FLAT_DTYPES.items():
         e = {'main_path': max(max_abs_diff(mixture.synth_args(banks[name], d))
-                              for d in main_draws[:4])}
+                              for d in main_draws[:4]),
+             'density2048': max(max_abs_diff(
+                 mixture.synth_args(banks2048[name], d))
+                 for d in density_draws)}
         for case, args in cases.items():
             e[case] = max_abs_diff(args if dt == torch.float32
                                    else lowp_case(args, dt))
@@ -1548,7 +1889,7 @@ def main(argv) -> int:
                                 + full[8:])
         errs[SE_KERNELS[dt]] = e
     # 3d. the fused mel kernels
-    errs.update(mel_checks(dev, banks, main_draws, cases))
+    errs.update(mel_checks(dev, banks, main_draws, cases, banks2048))
     log('kernel vs plain, max abs diff: ' + json.dumps(errs))
     if any(v != 0.0 for e in errs.values() for v in e.values()):
         raise AssertionError('a synthesis kernel disagrees with its plain '
@@ -1561,6 +1902,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     eff_ref = eff_reference_check(dev)
     log(f'phase 4e: {time.perf_counter() - t0:.3f} s')
+    t0 = time.perf_counter()
+    density_ref = density_reference_check(dev)
+    density_ref['density_4f_s'] = time.perf_counter() - t0
+    log(f'phase 4f: {density_ref["density_4f_s"]:.3f} s')
 
     # 5. the main path
     f32_kernel = KERNELS[torch.float32][0]
@@ -1592,6 +1937,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     eff_loop, eff_train_it, eff = eff_main_path(banks['float32'])
     log(f'phase 5e: {time.perf_counter() - t0:.3f} s')
+    # 5f. this slice's main path: the density trainer through B1 and B4
+    density = density_main_path(banks2048['float32'])
+    del banks2048
 
     # 6. times: each kernel on the main path's draws (the flat-complex
     # ones on the full mix, the se triple on the same draws); then the
@@ -1775,8 +2123,25 @@ def main(argv) -> int:
         'eff_launches': {**eff['eff_launches'],
                          'cli_int8': cli['eff_int8_launches']},
         'card': smi}))
+    density_launches = {
+        'synth_mag_f32': density['density_launches']['unfused'],
+        'synth_mel_f32': density['density_launches']['fused'],
+        'synth_mag_int8': {'synth_mag_int8': sum(
+            c.get('synth_mag_int8', 0)
+            for c in cli['density_int8_launches'])}}
+    log('DENSITY ' + json.dumps({
+        **{k: v for k, v in density.items() if k != 'density_launches'},
+        **density_ref, 'density_3d_max_abs_err': {
+            MEL_KERNELS[dt]: errs[MEL_KERNELS[dt]]['density2048']
+            for dt in MEL_KERNELS},
+        **{k: cli[k] for k in ('density_cli_s', 'density_cli_batches',
+                               'density_7e_s')},
+        'density_launches': {**density['density_launches'],
+                             'cli_int8': cli['density_int8_launches']},
+        'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
-                             if not k.endswith('launches')}))
+                             if not k.endswith('launches')
+                             and not k.startswith('density')}))
     log(smi)
     runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
             'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
@@ -1799,6 +2164,7 @@ def main(argv) -> int:
         'replaces': 'challenge_tpu/ops/pallas_synth.py:79',
         'launches': runs[name][0].get(name, 0),
         'launches_per_step': runs[name][0].get(name, 0) / runs[name][1],
+        'density_launches': density_launches.get(name, {}).get(name, 0),
         'max_abs_err': max(errs[name].values()),
         **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {

@@ -325,6 +325,15 @@ def x64():
         yield
 
 
+def inject_masks(module, masks):
+    """Give each block with stochastic depth its mask, in block order."""
+    blocks = [b for b in module.backbone.blocks if b.drop_rate > 0]
+    assert len(blocks) == len(masks)
+    for block, m in zip(blocks, masks):
+        t = torch.from_numpy(np.array(m)).view(-1, 1, 1, 1)
+        block.keep_mask = lambda x, gen, t=t: t.to(x.device)
+
+
 def write_dev_set(d, seconds=(4.0, 6.5, 8.0)):
     """Two-channel 16 kHz WAVs of the given lengths (by default 3 of 4-8
     s) with a tone on channel 0 in directory ``d``, and a

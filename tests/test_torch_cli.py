@@ -297,3 +297,147 @@ def test_port_checkpoint_round_trips_exactly(tmp_path):
     (tmp_path / 'k.h5').write_bytes(b'\x89HDF\r\n\x1a\n' + b'\0' * 8)
     with pytest.raises(NotImplementedError, match='ROADMAP A15'):
         checkpoint.load_weights(str(tmp_path / 'k.h5'))
+
+
+# ------------------------------------------------------ the density trainer
+DENSITY_ARGV = ['--name', 'dens', '--model', 'EfficientNetB0', '--n_chan',
+                '2', '--n_mels', '32', '--n_frame', '64', '--batch_size',
+                '2', '--epochs', '2', '--steps_per_epoch', '2']
+
+
+@pytest.fixture(scope='module')
+def density_run(tmp_path_factory):
+    """``cli.trainer`` on the CPU for 2 epochs of 2 steps (16 validation
+    steps each; SWA folds at epoch 0), in a directory of its own; returns
+    the directory and the standard output."""
+    import contextlib
+    import io
+
+    from challenge_tpu_torch.cli import trainer
+    d = tmp_path_factory.mktemp('density')
+    make_datafiles(d)
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.chdir(d)
+        run = trainer.main(DENSITY_ARGV + ['--datapath', str(d), '--device',
+                                           'cpu'] + DATA_FLAGS)
+    assert run == 'dens'
+    return d, out.getvalue()
+
+
+def test_trainer_cli_writes_the_trio_and_a_cos_sim_log(density_run):
+    """{name}.h5 (best val_loss), {name}_SWA.h5 and the {name}.log CSV,
+    whose metrics are cos_sim only, as JAX's (tests/test_cli.py:246-252)."""
+    d, out = density_run
+    for f in ('dens.h5', 'dens_SWA.h5', 'dens.log'):
+        assert (d / f).exists(), f
+    with open(d / 'dens.log') as f:
+        rows = list(csv.reader(f))
+    header = rows[0]
+    assert 'cos_sim' in header and 'val_cos_sim' in header
+    assert 'er' not in header and 'f1_score' not in header
+    assert [r[0] for r in rows[1:]] == ['0', '1']
+    assert all(np.isfinite(float(r[header.index(k)])) for r in rows[1:]
+               for k in ('loss', 'val_loss', 'cos_sim'))
+    assert 'Saving Weights...  0' in out and 'loaded pretrained' not in out
+    w = checkpoint.load_weights(str(d / 'dens_SWA.h5'))
+    assert w['denses.0.weight'].shape == (3, 1280)
+
+
+def test_trainer_cli_pretrain_loads_and_cuts_on_plateaus(density_run,
+                                                         tmp_path,
+                                                         monkeypatch,
+                                                         capsys):
+    """``--pretrain True`` (any value: the reference's bool flag) loads
+    {name}.h5 and takes ReduceLROnPlateau instead of the warmup
+    schedule, whose learning rate it keeps over 2 epochs. It runs in a
+    copy of the first run's directory, which stays as that run left it."""
+    import shutil
+
+    from challenge_tpu_torch.cli import trainer
+    d = tmp_path / 'run'
+    shutil.copytree(density_run[0], d)
+    monkeypatch.chdir(d)
+    seen = {}
+
+    class Plateau(cb.ReduceLROnPlateau):
+        def on_train_begin(self):
+            seen['plateau'] = self
+
+    def no_schedule(*a, **kw):
+        raise AssertionError('the pretrain branch takes no scheduler')
+    loaded = []
+    orig = trainer.load_weights
+    monkeypatch.setattr(trainer, 'ReduceLROnPlateau', Plateau)
+    monkeypatch.setattr(trainer, 'LearningRateScheduler', no_schedule)
+    monkeypatch.setattr(trainer, 'load_weights',
+                        lambda *a: loaded.append(a[0]) or orig(*a))
+    trainer.main(DENSITY_ARGV + ['--pretrain', 'False', '--datapath', str(d),
+                                 '--device', 'cpu'] + DATA_FLAGS)
+    assert loaded == ['dens.h5']
+    assert 'loaded pretrained model' in capsys.readouterr().out
+    p = seen['plateau']
+    assert (p.monitor, p.factor, p.patience) == ('loss', 0.9, 5)
+    assert p.loop.state.optimizer.param_groups[0]['lr'] == 1e-4
+    with open(d / 'dens.log') as f:
+        assert len(f.read().strip().splitlines()) == 5   # appended
+
+
+def test_trainer_to_config_equals_jax_field_by_field():
+    import dataclasses
+
+    from challenge_tpu.cli import trainer as jtrainer
+    from challenge_tpu_torch.cli import trainer
+    for argv in (['--name', 'dens'],
+                 DENSITY_ARGV + ['--bank_dtype', 'int8', '--pretrain', 'x',
+                                 '--lr', '3e-4', '--multiplier', '4',
+                                 '--loss_alpha', '0.5', '--seed', '3']):
+        jns = jtrainer.build_args().parse_args(argv)
+        ns = trainer.build_args().parse_args(argv)
+        assert {k: v for k, v in vars(ns).items()
+                if k not in ('device', 'datapath')} == \
+            {k: v for k, v in vars(jns).items() if k != 'datapath'}
+        ref = dataclasses.asdict(jtrainer.to_config(jns))
+        got = dataclasses.asdict(trainer.to_config(ns))
+        assert set(got) == set(ref)
+        for k in ref:
+            if k != 'datapath':
+                assert got[k] == ref[k], k
+        assert got['model'] in ('EfficientNetB4', 'EfficientNetB0')
+        assert got['v'] == 0 and got['model_type'] == 'eff'
+    assert trainer.build_args().parse_args(['--name', 'x']).datapath == ''
+
+
+@pytest.mark.parametrize('n_chan', ['1', '3'])
+def test_trainer_refuses_n_chan_but_2(n_chan):
+    """ROADMAP C9: at the default --n_chan 1 (and 3) the density features
+    keep 2 channels, so JAX's first step fails; the port refuses."""
+    from challenge_tpu_torch.cli import trainer
+    argv = ['--name', 'd', '--device', 'cpu']
+    with pytest.raises(ValueError, match='C9'):
+        trainer.main(argv + ([] if n_chan == '1' else ['--n_chan', n_chan]))
+
+
+@pytest.mark.parametrize('flag,item', [
+    (['--n_devices', '2'], 'A14'), (['--bank_shard', 'True'], 'A14'),
+    (['--stream_chunks', '2'], 'A14'), (['--grad_accum', '2'], 'A14'),
+    (['--steps_per_call', '2'], 'A14'), (['--remat', 'True'], 'A14'),
+    (['--compute_dtype', 'bfloat16'], 'A14'), (['--ckpt_dir', 'ck'], 'A15'),
+    (['--resume', 'True'], 'A15'), (['--keras_ckpt', 'True'], 'A15')])
+def test_trainer_refuses_unported_flags(flag, item):
+    """Each unported flag raises naming its ROADMAP item, before any data
+    is read: in the CLI or in the layer that owns the flag (the model,
+    the loop or the banks)."""
+    from challenge_tpu_torch.cli import trainer
+    with pytest.raises(NotImplementedError,
+                       match=f'{flag[0][2:]}.*ROADMAP {item}'):
+        trainer.main(['--name', 'd', '--model', 'EfficientNetB0', '--n_chan',
+                      '2', '--device', 'cpu'] + flag)
+
+
+def test_trainer_runs_on_cuda_unless_told_the_cpu(monkeypatch):
+    """Without a GPU and without --device cpu, the CLI raises."""
+    from challenge_tpu_torch.cli import trainer
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        trainer.main(['--name', 'd', '--n_chan', '2'])

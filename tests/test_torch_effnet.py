@@ -29,7 +29,7 @@ import pytest
 import torch
 from flax import linen as nn
 
-from _torch_parity import f64, vad_variables, x64
+from _torch_parity import f64, inject_masks, vad_variables, x64
 from challenge_tpu import config as jconfig
 from challenge_tpu.models import effnet as jeff
 from challenge_tpu.models import registry as jregistry
@@ -248,15 +248,6 @@ def record_dropout(rec):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(nn, 'Dropout', Dropout)
         yield
-
-
-def inject_masks(module, masks):
-    """Give each block with stochastic depth its mask, in block order."""
-    blocks = [b for b in module.backbone.blocks if b.drop_rate > 0]
-    assert len(blocks) == len(masks)
-    for block, m in zip(blocks, masks):
-        t = torch.from_numpy(np.array(m)).view(-1, 1, 1, 1)
-        block.keep_mask = lambda x, gen, t=t: t.to(x.device)
 
 
 # a shallow, narrow EfficientNet for the whole-model gradients (width 0.25,

@@ -98,9 +98,9 @@ def test_train_forward_and_bn_stats_match_jax(models):
 
 def test_unported_versions_raise():
     """Every vad version is built (v6, v7 and v9: test_torch_vad_versions.py)
-    and so is the EfficientNet-SED family (test_torch_effnet.py); what is
-    still unported raises and names its ROADMAP item: the density head
-    (A13) and bfloat16 compute (A14)."""
+    and so are the EfficientNet-SED family (test_torch_effnet.py) and the
+    density head (test_torch_density.py); what is still unported raises
+    and names its ROADMAP item: bfloat16 compute (A14)."""
     from challenge_tpu_torch.config import Config
     from challenge_tpu_torch.models.effnet import EffNetSED
     from challenge_tpu_torch.models.registry import get_model
@@ -109,8 +109,8 @@ def test_unported_versions_raise():
     bundle = get_model(Config(model_type='eff', v=1, n_mels=32, n_frame=64),
                        device='cpu')
     assert isinstance(bundle.module, EffNetSED) and bundle.needs_dropout_gen
-    with pytest.raises(NotImplementedError, match='ROADMAP A13'):
-        EffNetSED(head='density')
+    density = EffNetSED(head='density', n_mels=32, n_frame=64)
+    assert density.density and len(density.denses) == 1
     with pytest.raises(NotImplementedError, match='ROADMAP A14'):
         get_model(Config(model_type='vad', compute_dtype='bfloat16'),
                   device='cpu')
