@@ -9,7 +9,10 @@ run goes to ``cuda`` unless given ``--device cpu``, and raises without a
 card. The run name, the checkpoint trio ({run}.h5, _SWA.h5, _sample.h5),
 the CSV log, the monitors and the callback order match the reference. The
 banks are always slim, as on the JAX CLI's accelerator path: only the flat
-layout of ``--bank_dtype`` goes to the device.
+layout of ``--bank_dtype`` goes to the device. The loop trains in banks
+mode, JAX's fused step (``parallel.train``): one CUDA graph a step on the
+card, eager with ``--device cpu``; ``--steps_per_call``, ``--grad_accum``
+and ``--remat`` shape that step as they shape JAX's.
 
 The se v9 family trains in two runs. ``--pretrain True`` trains the U-Net
 and names its run ``..._weight``. Without the flag (the reference's

@@ -17,6 +17,12 @@ plateaus of the training loss. The SWA average is written to
 ``{name}_SWA.h5``; a run too short to fold SWA raises ``NO_SWA_ERROR``,
 as JAX's does.
 
+With ``--grad_accum`` > 1 the run trains in banks mode, the fused step
+over the density batches (``TrainLoop(variant='density')``), as JAX's
+does (cli/trainer.py:179-192); otherwise it trains from the reference's
+batch iterators, where ``--steps_per_call`` does not apply. ``--remat``
+rematerialises the forward in either mode.
+
 The flags are the JAX CLI's, plus ``--device``: the run goes to ``cuda``
 unless given ``--device cpu``. ``--datapath`` defaults to the working
 directory (the JAX CLI's default is a dataset path of the reference
@@ -129,23 +135,20 @@ def to_config(ns) -> Config:
 
 
 def refuse_unported(config: Config) -> None:
-    """n_chan != 2 (ROADMAP C9), the scale-out flags no layer below
-    refuses (ROADMAP A14) and the checkpoint flags (ROADMAP A15). The
-    model refuses ``--compute_dtype bfloat16``, the loop ``--grad_accum``
-    and ``--steps_per_call``, and the banks ``--stream_chunks`` and
-    ``--bank_shard``, all before any data is read."""
+    """n_chan != 2 (ROADMAP C9), ``--n_devices`` (ROADMAP A14) and the
+    checkpoint flags (ROADMAP A15). The model refuses ``--compute_dtype
+    bfloat16``, and the banks ``--stream_chunks`` and ``--bank_shard``,
+    all before any data is read."""
     if config.n_chan != 2:
         raise ValueError(
             f'n_chan={config.n_chan}: the density features keep 2 channels '
             'at every n_chan (no channel map), so a model built for '
             f'{config.n_chan} cannot train on them; the JAX trainer fails '
             'its first step the same way (ROADMAP C9). Pass --n_chan 2')
-    for flag, on in (('n_devices', config.n_devices > 1),
-                     ('remat', config.remat)):
-        if on:
-            raise NotImplementedError(
-                f'--{flag} {getattr(config, flag)} is not ported yet '
-                '(ROADMAP A14)')
+    if config.n_devices > 1:
+        raise NotImplementedError(
+            f'--n_devices {config.n_devices} is not ported yet '
+            '(ROADMAP A14)')
     refuse_checkpoint_flags(config)
 
 
@@ -184,7 +187,17 @@ def main(argv=None) -> str:
     name = ns.name if ns.name.endswith('.h5') else ns.name + '.h5'
 
     bundle = get_density_model(config, device=device, seed=config.seed)
-    loop = TrainLoop(bundle, seed=config.seed, loss_fn=make_loss_fn(ns))
+    # gradient accumulation rides the fused step, so it trains in banks
+    # mode (cli/trainer.py:179-192)
+    fused = config.grad_accum > 1
+    if fused:
+        loop = TrainLoop(
+            bundle, seed=config.seed, loss_fn=make_loss_fn(ns),
+            variant='density',
+            banks=make_banks(config, True, ns.n_classes, device),
+            val_banks=make_banks(config, False, ns.n_classes, device))
+    else:
+        loop = TrainLoop(bundle, seed=config.seed, loss_fn=make_loss_fn(ns))
     n_params = sum(p.numel() for p in bundle.module.parameters())
     print(f'{type(bundle.module).__name__}: {n_params} parameters')
 
@@ -192,8 +205,10 @@ def main(argv=None) -> str:
         loop.set_weights(load_weights(name, device))
         print('loaded pretrained model')
 
-    train_set = make_dataset(config, True, ns.n_classes, device)
-    test_set = make_dataset(config, False, ns.n_classes, device)
+    train_set = test_set = None        # banks mode draws from the banks
+    if not fused:
+        train_set = make_dataset(config, True, ns.n_classes, device)
+        test_set = make_dataset(config, False, ns.n_classes, device)
     callbacks = [
         CSVLogger(name.replace('.h5', '.log')),
         SWA(start_epoch=config.epochs // 2, swa_freq=2),

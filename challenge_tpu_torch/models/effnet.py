@@ -47,7 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from challenge_tpu_torch.models.layers import (
-    BatchNorm, BiGRU, FullyConnectedLayer, kernel_fan_in, lecun_normal_)
+    BatchNorm, BiGRU, FullyConnectedLayer, kernel_fan_in, lecun_normal_,
+    remat_draw)
 
 # (width_coefficient, depth_coefficient) per variant B0..B7
 SCALING = {
@@ -153,7 +154,8 @@ class MBConv(nn.Module):
             return x
         if self.drop_rate > 0 and self.training:
             keep = 1.0 - self.drop_rate
-            x = torch.where(self.keep_mask(x, gen), x / keep, 0.0)
+            mask = remat_draw(lambda: self.keep_mask(x, gen))
+            x = torch.where(mask, x / keep, 0.0)
         return x + inputs
 
 

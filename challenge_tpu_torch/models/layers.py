@@ -13,10 +13,19 @@ head's Dense layers and BatchNorms take [B, T, D]. Keras parity:
 * Weights start from flax's defaults: LeCun normal (truncated) kernels,
   zero biases, BN scale 1 and bias 0, running mean 0 and variance 1; the
   LSTM's and the GRU's recurrent kernels orthogonal.
+
+Rematerialisation (``config.remat``, JAX's ``jax.checkpoint``) runs the
+training forward twice under ``torch.utils.checkpoint``, where JAX's pure
+forward has nothing to repeat. :func:`remat_contexts` keeps the second
+pass from repeating the first one's effects: it moves no BN running
+statistic (the first pass did, and the momentum would apply twice) and
+draws nothing (it takes the first pass's draws, :func:`remat_draw`, so a
+generator is drawn once and the masks agree) (ROADMAP C11, C12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -50,6 +59,43 @@ def kernel_fan_in(layer: nn.Module) -> int:
     return w[0].numel()
 
 
+# (draws, replaying) of the checkpointed forward that runs, if any: one
+# global, not a thread-local, since the recompute runs in autograd's
+# device thread
+_remat = None
+
+
+@contextlib.contextmanager
+def _remat_pass(draws: list, replaying: bool):
+    global _remat
+    _remat = (draws, replaying)
+    try:
+        yield
+    finally:
+        _remat = None
+
+
+def remat_contexts():
+    """``context_fn`` of a non-reentrant ``torch.utils.checkpoint``: the
+    first pass records its draws, the recompute replays them and leaves
+    the BN running statistics alone."""
+    draws = []
+    return _remat_pass(draws, False), _remat_pass(draws, True)
+
+
+def remat_draw(draw):
+    """``draw()``; inside a checkpointed forward, the first pass's draws
+    handed back in order to its recompute."""
+    if _remat is None:
+        return draw()
+    draws, replaying = _remat
+    if replaying:
+        return draws.pop(0)
+    out = draw()
+    draws.append(out)
+    return out
+
+
 class BatchNorm(nn.Module):
     """Keras-default BatchNormalization over every axis but ``feature_dim``."""
 
@@ -79,10 +125,11 @@ class BatchNorm(nn.Module):
         if self.training:
             mean = x.mean(dim=axes)
             var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1.0 - m) * mean)
-                self.running_var.mul_(m).add_((1.0 - m) * var)
+            if not (_remat and _remat[1]):     # not a remat's recompute
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                    self.running_var.mul_(m).add_((1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         y = x - mean.reshape(shape)

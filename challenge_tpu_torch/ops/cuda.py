@@ -9,13 +9,16 @@ loaded. Nothing here runs at import time: the CPU tests
 import every module on machines with no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one where it
-launches its kernel and nowhere else, so a run can show which kernels its
-main path went through.
+launches its kernel and nowhere else (:func:`count_launch`), so a run can
+show which kernels its main path went through. A launch made while a CUDA
+graph captures runs nothing: :func:`capture_launches` counts it apart, and
+each replay of the graph adds those counts to ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,10 +33,30 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict = {}
+_captured = None     # the launches of the graph being captured, if any
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name``: in ``LAUNCHES``, or while a
+    graph captures (:func:`capture_launches`), in that graph's count."""
+    (LAUNCHES if _captured is None else _captured)[name] += 1
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Yields a Counter of the launches made inside the block, which a CUDA
+    graph captures; they are not in ``LAUNCHES``. A replay of the graph
+    adds them there (``LAUNCHES.update(counter)``)."""
+    global _captured
+    _captured = collections.Counter()
+    try:
+        yield _captured
+    finally:
+        _captured = None
 
 
 def _nvcc() -> str:

@@ -350,7 +350,7 @@ def _run(lib: str, name: str, argtypes, *args) -> None:
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{name} launch failed: CUDA error {err}')
-    cuda.LAUNCHES[name] += 1
+    cuda.count_launch(name)
 
 
 def _launch(mode: str, n_frame: int, bgbank, bidx, boff,

@@ -167,7 +167,8 @@ class SWA(Callback):
 
 class LearningRateScheduler(Callback):
     """Set the learning rate of every parameter group at each epoch start
-    (reference: sj_train.py:501-503)."""
+    (reference: sj_train.py:501-503), in place in its device tensor, which
+    a captured step reads (``optim.KerasAdam``)."""
 
     def __init__(self, schedule: Callable[[int], float]):
         self.schedule = schedule
@@ -175,14 +176,16 @@ class LearningRateScheduler(Callback):
     def on_epoch_begin(self, epoch):
         lr = self.schedule(epoch)
         for group in self.loop.state.optimizer.param_groups:
-            group['lr'] = lr
+            group['lr'].fill_(lr)
 
 
 class ReduceLROnPlateau(Callback):
     """Multiply the learning rate of every parameter group by ``factor``
     after ``patience`` epochs without a new minimum of ``monitor``, then
     wait ``patience`` epochs again (counterpart: ``callbacks.py:208-235``,
-    mode 'min'; reference: trainer.py:278-279, the pretrain branch)."""
+    mode 'min'; reference: trainer.py:278-279, the pretrain branch). As in
+    JAX, the float32 rate times ``factor`` is taken in float64 and stored
+    in float32, in place in its device tensor."""
 
     def __init__(self, monitor: str = 'loss', factor: float = 0.9,
                  patience: int = 5):
@@ -204,7 +207,7 @@ class ReduceLROnPlateau(Callback):
         if self.wait >= self.patience:
             self.wait = 0
             for group in self.loop.state.optimizer.param_groups:
-                group['lr'] *= self.factor
+                group['lr'].fill_(float(group['lr']) * self.factor)
 
 
 class EvalCallback(Callback):

@@ -6,18 +6,23 @@ eval steps. Metrics are summed on the device and read once per epoch, so
 the host does not wait on the card between steps. Two sources of batches:
 
 * iterator mode: ``fit(train_iter, ...)`` consumes (x, y) batches, e.g.
-  from a :class:`~challenge_tpu_torch.data.pipeline.DevicePipeline`;
-* banks mode: ``TrainLoop(bundle, banks=, val_banks=)`` runs a
-  ``DevicePipeline`` over the banks for each (epoch, phase), seeded by
-  (seed, epoch, phase), so a given epoch always draws the same batches.
-  The values are those of JAX's fused mode (synthesis, then features, then
-  the step), whose one-XLA-program form is a TPU device and is not ported.
+  from a :class:`~challenge_tpu_torch.data.pipeline.DevicePipeline`, one
+  train step each (``config.steps_per_call`` does not apply, and
+  ``config.grad_accum`` > 1 raises, as in JAX);
+* banks mode: ``TrainLoop(bundle, banks=, val_banks=)`` runs JAX's fused
+  step (``parallel.train``): draws, synthesis, features, forward,
+  backward and the update of ``config.grad_accum`` microbatches a step,
+  ``config.steps_per_call`` steps a call, one CUDA graph a step on the
+  card and eager on the CPU. A training epoch is ``ceil(steps /
+  steps_per_call)`` calls (:meth:`TrainLoop.steps_per_fused_epoch`), and
+  its logs are the mean over calls of each call's mean. Each phase draws
+  from one generator, reseeded by (seed, epoch, phase) at each epoch, so
+  a given epoch always draws the same batches.
 
-A model with stochastic depth (the eff family) trains each epoch with a
-fresh ``torch.Generator`` on its device, seeded by (seed, epoch) on a
-stream of its own (:meth:`TrainLoop.dropout_gen`), so a given epoch drops
-the same samples after a restart, as JAX's per-epoch keys do
-(loop.py:135-142).
+A model with stochastic depth (the eff family) trains each epoch with its
+generator reseeded by (seed, epoch) on a stream of its own
+(:meth:`TrainLoop.dropout_gen`), so a given epoch drops the same samples
+after a restart, as JAX's per-epoch keys do (loop.py:135-142).
 """
 
 from __future__ import annotations
@@ -29,43 +34,56 @@ import numpy as np
 import torch
 
 from challenge_tpu_torch.data.mixture import Banks
-from challenge_tpu_torch.data.pipeline import DevicePipeline
 from challenge_tpu_torch.models.registry import ModelBundle
+from challenge_tpu_torch.parallel.train import (
+    make_fused_eval_step, make_fused_train_step)
 from challenge_tpu_torch.train.callbacks import Callback
 from challenge_tpu_torch.train.metrics import f1_from_counts
 from challenge_tpu_torch.train.state import (
     init_state, make_eval_step, make_train_step)
 
 
-def _refuse_unported(config) -> None:
-    """The loop's scale-out settings of ROADMAP A14 (the CLI refuses the
-    bank ones, ``stream_chunks`` and ``bank_shard``)."""
-    for flag in ('steps_per_call', 'grad_accum'):
-        if getattr(config, flag) > 1:
-            raise NotImplementedError(
-                f'{flag}={getattr(config, flag)} is not ported yet '
-                '(ROADMAP A14)')
-
-
 class TrainLoop:
     """Owns the TrainState and drives epochs, with Keras-style callbacks.
     ``loss_fn`` replaces ``get_loss(config)`` in the train and eval steps
-    (``state.make_grad_update``)."""
+    (``state.make_grad_update``); ``variant`` is the banks mode's batch
+    (``'sj'`` or the density trainer's ``'density'``)."""
 
     def __init__(self, bundle: ModelBundle, seed: int = 0,
                  banks: Optional[Banks] = None,
-                 val_banks: Optional[Banks] = None, loss_fn=None):
-        _refuse_unported(bundle.config)
+                 val_banks: Optional[Banks] = None, loss_fn=None,
+                 variant: str = 'sj'):
         self.bundle = bundle
         self.config = bundle.config
         self.seed = seed
-        self.train_step = make_train_step(bundle, loss_fn)
-        self.eval_step = make_eval_step(bundle, loss_fn)
+        self.fused = banks is not None
+        if self.fused:
+            self.train_step = make_fused_train_step(
+                bundle, self.config, loss_fn, variant)
+            self.eval_step = make_fused_eval_step(bundle, self.config,
+                                                  loss_fn, variant)
+            self.steps_per_call = self.train_step.steps_per_call
+        else:
+            if max(int(self.config.grad_accum), 1) > 1:
+                raise ValueError(
+                    'grad_accum > 1 needs fused banks mode (pass banks=): '
+                    'iterator-mode batches arrive one at a time, so the '
+                    'loop cannot accumulate microbatches inside the step')
+            self.train_step = make_train_step(bundle, loss_fn)
+            self.eval_step = make_eval_step(bundle, loss_fn)
+            self.steps_per_call = 1
         self.state = init_state(bundle, seed)
         self.banks, self.val_banks = banks, val_banks
         self.stop_training = False
         self.history: List[dict] = []
+        self._gens = {}      # banks mode's phase generators, then dropout's
         self.gen = None      # the last training epoch's dropout generator
+
+    def steps_per_fused_epoch(self, steps_per_epoch: int) -> int:
+        """The optimizer steps a training epoch advances: in banks mode
+        ``ceil(steps / steps_per_call)`` whole calls (loop.py:97-108)."""
+        n_calls = max(-(-int(steps_per_epoch) // self.steps_per_call), 1)
+        return n_calls * self.steps_per_call
 
     # Keras-model-like surface used by callbacks
     def get_weights(self) -> dict:
@@ -74,27 +92,33 @@ class TrainLoop:
                 for k, v in self.state.module.state_dict().items()}
 
     def set_weights(self, weights) -> None:
-        """Copy ``weights`` (a state_dict) into the module; no tensor of
-        ``weights`` is aliased, so it may be the state's own SWA average."""
+        """Copy ``weights`` (a state_dict) into the module in place: no
+        tensor of ``weights`` is aliased, so it may be the state's own SWA
+        average, and the module's tensors keep the addresses a captured
+        step reads."""
         self.state.module.load_state_dict(weights)
 
-    def _pipeline(self, epoch: int, training: bool) -> DevicePipeline:
-        """Banks mode's batches of (seed, epoch, phase) (loop.py:135-142)."""
+    def _generator(self, key, seed: np.random.SeedSequence):
+        """The loop's generator ``key`` on the model's device, reseeded."""
+        gen = self._gens.get(key)
+        if gen is None:
+            gen = self._gens[key] = torch.Generator(device=self.bundle.device)
+        gen.manual_seed(int(seed.generate_state(1)[0]))
+        return gen
+
+    def phase_gen(self, epoch: int, training: bool) -> torch.Generator:
+        """Banks mode's generator of (seed, epoch, phase) (loop.py:135-142):
+        one per phase, reseeded for each epoch."""
         seed = np.random.SeedSequence([self.seed, epoch, int(training)])
-        return DevicePipeline(self.banks if training else self.val_banks,
-                              self.config, training,
-                              seed=int(seed.generate_state(1)[0]),
-                              device=self.bundle.device)
+        return self._generator(training, seed)
 
     def dropout_gen(self, epoch: int):
-        """The stochastic-depth generator of a training epoch, or None
-        for a model without stochastic depth."""
+        """The stochastic-depth generator reseeded for a training epoch, or
+        None for a model without stochastic depth."""
         if not self.bundle.needs_dropout_gen:
             return None
         seed = np.random.SeedSequence([self.seed, epoch], spawn_key=(1,))
-        gen = torch.Generator(device=self.bundle.device)
-        gen.manual_seed(int(seed.generate_state(1)[0]))
-        return gen
+        return self._generator('dropout', seed)
 
     def _finalize(self, sums, count):
         # a multi-output model logs its class head's metrics under Keras'
@@ -110,23 +134,26 @@ class TrainLoop:
                 logs[k] = float(v) / count
         return logs
 
-    def _batches(self, data_iter, steps: int, training: bool, epoch: int):
-        if data_iter is None:
-            data_iter = iter(self._pipeline(epoch, training))
-        for _ in range(steps):
-            yield next(data_iter)
-
     def run_epoch(self, data_iter, steps: int, training: bool,
                   epoch: int = 0):
         sums, count = {}, 0
         if training:
             # kept, so a caller can see how far it was drawn
             self.gen = self.dropout_gen(epoch)
-        for batch in self._batches(data_iter, steps, training, epoch):
-            if training:
-                metrics = self.train_step(self.state, batch, self.gen)
-            else:
-                metrics = self.eval_step(self.state, batch)
+        if self.fused:
+            gen = self.phase_gen(epoch, training)
+            n_calls = (max(-(-steps // self.steps_per_call), 1)
+                       if training else steps)
+            calls = (self.train_step(self.state, self.banks, gen, self.gen)
+                     if training else
+                     self.eval_step(self.state, self.val_banks, gen)
+                     for _ in range(n_calls))
+        else:
+            calls = (self.train_step(self.state, next(data_iter), self.gen)
+                     if training else
+                     self.eval_step(self.state, next(data_iter))
+                     for _ in range(steps))
+        for metrics in calls:
             for k, v in metrics.items():
                 sums[k] = v if k not in sums else sums[k] + v
             count += 1

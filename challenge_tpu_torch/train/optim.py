@@ -60,12 +60,23 @@ def adaptive_clip_grad(params, grads, clip_factor: float = 0.01,
 
 
 # ------------------------------------------------ Keras Adam, AdaBelief
-def _bias_correction(step: int, b1: float, b2: float) -> float:
-    """sqrt(1 - b2^t) / (1 - b1^t) in float32, as the JAX rules compute it
-    from ``count.astype(float32)``."""
-    t = np.float32(step)
-    return float(np.sqrt(np.float32(1) - np.float32(b2) ** t)
-                 / (np.float32(1) - np.float32(b1) ** t))
+def bias_correction(step: torch.Tensor, b1: float, b2: float) -> torch.Tensor:
+    """sqrt(1 - b2^t) / (1 - b1^t) as a float32 tensor on ``step``'s device,
+    for the step count ``step`` (an int64 tensor), with no host read, so a
+    CUDA graph can replay it. The JAX rules compute it in float32 from
+    ``count.astype(float32)``. Here each power of the float32 beta is taken
+    in float64 and rounded once to float32; the subtractions are exact in
+    float32; the root and the division are taken in float64 on float32
+    values and rounded once, which gives the correctly rounded float32 root
+    and quotient (float64 holds more than twice float32's digits). So the
+    CPU and the card agree, where torch's float32 ``sqrt`` on the CPU can
+    be an ulp off the IEEE root."""
+    t = step.to(torch.float64)
+    f32 = torch.float32
+    p1 = torch.pow(float(np.float32(b1)), t).to(f32)
+    p2 = torch.pow(float(np.float32(b2)), t).to(f32)
+    root = torch.sqrt((1 - p2).double()).to(f32)
+    return (root.double() / (1 - p1).double()).to(f32)
 
 
 class KerasAdam(torch.optim.Optimizer):
@@ -78,10 +89,15 @@ class KerasAdam(torch.optim.Optimizer):
         p = p - lr * (sqrt(1-b2^t)/(1-b1^t)) * m / (sqrt(v) + eps)
 
     ``torch.optim.Adam`` adds eps to the corrected sqrt(v_hat) instead, an
-    effective eps ~31x larger at step 1. The step count t is kept per
-    parameter like torch's optimizers; ``m`` and ``v`` live in
-    ``self.state[p]``. :class:`AdaBelief` changes only the second moment,
-    in :meth:`second_moment`."""
+    effective eps ~31x larger at step 1. Each parameter group keeps its
+    learning rate ``group['lr']`` and its step count t ``group['step']``
+    (every step updates every parameter, as optax counts) as 0-dim
+    tensors on its parameters' device, the rate in their dtype (JAX keeps
+    it in its default float: float32, or float64 under x64), so a
+    captured step reads them anew at each replay; change the rate with
+    ``group['lr'].fill_(...)``. ``m`` and ``v`` live in ``self.state[p]``.
+    :class:`AdaBelief` changes only the second moment, in
+    :meth:`second_moment`."""
 
     def __init__(self, params, lr: float = 1e-3, clipvalue=None,
                  beta_1: float = 0.9, beta_2: float = 0.999,
@@ -89,6 +105,12 @@ class KerasAdam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, clipvalue=clipvalue,
                                       beta_1=beta_1, beta_2=beta_2,
                                       epsilon=epsilon))
+        for group in self.param_groups:
+            p = group['params'][0]
+            group['lr'] = torch.tensor(float(group['lr']), dtype=p.dtype,
+                                       device=p.device)
+            group['step'] = torch.zeros((), dtype=torch.int64,
+                                        device=p.device)
 
     def second_moment(self, state, g, b2: float):
         """Update ``state['v']`` for the clipped gradient ``g`` (``m`` is
@@ -102,6 +124,8 @@ class KerasAdam(torch.optim.Optimizer):
         for group in self.param_groups:
             b1, b2 = group['beta_1'], group['beta_2']
             clip, lr = group['clipvalue'], group['lr']
+            group['step'].add_(1)
+            corr = bias_correction(group['step'], b1, b2)
             for p in group['params']:
                 if p.grad is None:
                     continue
@@ -110,11 +134,8 @@ class KerasAdam(torch.optim.Optimizer):
                     g = g.clamp(-clip, clip)
                 state = self.state[p]
                 if not state:
-                    state['step'] = 0
                     state['m'] = torch.zeros_like(p)
                     state['v'] = torch.zeros_like(p)
-                state['step'] += 1
-                corr = _bias_correction(state['step'], b1, b2)
                 m = state['m']
                 m.mul_(b1).add_((1 - b1) * g)
                 v = self.second_moment(state, g, b2)

@@ -7,19 +7,21 @@ running statistics updated), loss, gradients, adaptive gradient clipping
 (vad and se families), the se cascade's freeze mask, then the optimizer
 (clipvalue + Keras Adam, or AdaBelief for the density trainer). As in the
 JAX package it is split at the gradient (``make_grad_update``), so the
-gradients can be inspected or, later, accumulated. Metrics read the first
-output and target of a multi-output model, the se cascade's class head
-(state.py:60).
+gradients can be inspected or accumulated (:func:`accumulate_grads`).
+Metrics read the first output and target of a multi-output model, the se
+cascade's class head (state.py:60).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from challenge_tpu_torch.models.layers import remat_contexts
 from challenge_tpu_torch.models.registry import ModelBundle
 from challenge_tpu_torch.train import metrics as metrics_lib
 from challenge_tpu_torch.train.losses import get_loss
@@ -82,6 +84,13 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None):
     * ``update_fn(state, grads)``: AGC, the se freeze mask, then the
       optimizer, in place.
 
+    With ``config.remat`` the forward and the loss run under a
+    non-reentrant ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint`` of
+    ``loss_of``, state.py:99-106), which keeps no activation and runs the
+    forward again in the backward; ``models.layers.remat_contexts`` keeps
+    that recompute from moving the BN statistics again or drawing new
+    keep masks, so the step equals the one without remat.
+
     AGC applies to the families built on the reference's CustomModel
     ('vad' and 'se'); the others only get the optimizer's clipvalue. The
     freeze mask multiplies the frozen half's gradients by 0 after AGC
@@ -95,12 +104,23 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None):
     mask = bundle.trainable_mask() if config.model_type == 'se' else None
 
     needs_gen = bundle.needs_dropout_gen
+    remat = bool(getattr(config, 'remat', False))
 
     def grad_fn(module: nn.Module, batch, gen=None):
         x, y = batch
         module.train()
-        out = module(x, gen) if needs_gen else module(x)
-        loss, parts = _loss_of(loss_fn, y, out, module)
+
+        def loss_of(x):
+            out = module(x, gen) if needs_gen else module(x)
+            loss, parts = _loss_of(loss_fn, y, out, module)
+            return loss, parts, out
+
+        if remat:
+            loss, parts, out = checkpoint(
+                loss_of, x, use_reentrant=False, preserve_rng_state=False,
+                context_fn=remat_contexts)
+        else:
+            loss, parts, out = loss_of(x)
         grads = torch.autograd.grad(loss, list(module.parameters()))
         with torch.no_grad():
             return grads, _metrics(metric_fns, loss, parts, y, out)
@@ -118,6 +138,38 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None):
         state.step += 1
 
     return grad_fn, update_fn
+
+
+def _mean(values):
+    """The mean over a list of equal-shaped tensors, as ``jnp.mean(axis=0)``
+    of their stack."""
+    return torch.stack(values).mean(dim=0)
+
+
+def mean_metrics(metrics):
+    """A list of metric dicts -> each metric's mean; one dict as it is."""
+    if len(metrics) == 1:
+        return metrics[0]
+    return {k: _mean([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def accumulate_grads(grad_fn, module: nn.Module, batches: Iterable,
+                     gen=None):
+    """JAX's microbatch scan (parallel/train.py:188-208): ``grad_fn`` over
+    each batch in order (each forward moves the BN statistics, so they
+    thread through the microbatches), the gradients summed in that order
+    and divided by their count k, each metric the mean over the
+    microbatches. Returns ``(grads, metrics)``; one batch gives its own."""
+    grads, metrics = None, []
+    for batch in batches:
+        g, m = grad_fn(module, batch, gen)
+        grads = list(g) if grads is None else [a + b
+                                               for a, b in zip(grads, g)]
+        metrics.append(m)
+    k = len(metrics)
+    if k > 1:
+        grads = [g / k for g in grads]
+    return grads, mean_metrics(metrics)
 
 
 def make_train_step(bundle: ModelBundle, loss_fn=None):

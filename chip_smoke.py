@@ -145,6 +145,25 @@ without the result line:
    tests/test_pallas_synth.py:553-558 holds JAX's), and the step (10
    steps), the batch pipeline and the model step timed as in phase 6,
    with the run's peak device memory, printed on the ``DENSITY`` line;
+5g. the fused training step (``parallel/train.py``: the draws, synthesis,
+   features, forward, backward and update of a step captured as one CUDA
+   graph and replayed, as ``TrainLoop`` runs it in banks mode) at full
+   width, batch 12, on float32 banks, for vad v8, eff B0 v1 and se v9
+   pretrain: the graphed step against its plain version (the same
+   composition, eager) from the same seed for 4 steps, the weights, BN
+   statistics, Adam's moments and step and the metrics held bit for bit,
+   or within the gap between two plain runs where cuDNN's atomics part
+   them (both gaps printed); the graphed call's launches, its replays'
+   included, once a batch; for vad v8 and eff B0 v1 ``steps_per_call=4``
+   against 4 calls of 1, ``grad_accum=2`` graphed against its plain
+   version, and ``remat`` against none, with the peak memory of 2 plain
+   steps (cuDNN's algorithm search included where the shapes are new)
+   and of the graphed call after them; the density trainer's configuration (B4 at 2,048 frames) with
+   ``grad_accum=2`` in banks mode with and without remat, with their
+   peaks; and the graphed step (``fused_step_ms``) and the eager one
+   (``eager_fused_step_ms``) timed in turns (graph, eager, eager, graph),
+   20 steps each (10 for se), read back once, printed on the ``FUSED``
+   line;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the se triple's: its sources read once, three windows written), the
@@ -153,7 +172,7 @@ without the result line:
    step (20 steps of one epoch, read back once, as ``fit`` does), the
    batch pipeline and the model step on their own; the same for the se
    pretrain step (10 steps); then the vad training step in banks mode, as
-   the CLI runs it, and the batch pipeline alone, with float32 and int8
+   the CLI runs it (the graphed fused step), and the batch pipeline alone, with float32 and int8
    banks in turns (float32, int8, int8, float32), so that only the bank
    dtype differs; the mel kernels against their plain versions in turns,
    with bounds over the band's columns and over all columns; the v9
@@ -164,7 +183,9 @@ without the result line:
    pipeline and model step, and B7 v6's step (``eff_b7_step_ms``, 5 steps,
    timed right after its run in 5e so that its memory is freed before the
    later phases), printed on the ``EFF`` line with the peaks of 5e;
-7. the CLI chain, in a temporary directory: the realistic spec sets as
+7. the CLI chain, in a temporary directory (``cli.sj_train`` trains in
+   banks mode, so through the graphed fused step, whose replays count the
+   launches they replay): the realistic spec sets as
    pickles under sj_train's default file names, and a dev set of 6
    two-channel 16 kHz WAVs of 60 s with ``sample_answer.json``; then
    ``cli.sj_train.main`` with ``--bank_dtype int8`` for 3 epochs of 5 steps
@@ -265,8 +286,10 @@ from challenge_tpu_torch.ops.synth import (
     synthesize_se, synthesize_se_plain)
 from challenge_tpu_torch.train.checkpoint import load_weights
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
+from challenge_tpu_torch.parallel import make_fused_train_step
 from challenge_tpu_torch.train.optim import make_optimizer
-from challenge_tpu_torch.train.state import TrainState, make_grad_update
+from challenge_tpu_torch.train.state import (
+    TrainState, init_state, make_grad_update)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
@@ -983,6 +1006,226 @@ class Tee(io.StringIO):
     def write(self, text):
         self.stream.write(text)
         return super().write(text)
+
+
+def fused_run(bundle, banks, spc: int, calls: int, graphed: bool,
+              state=None, step=None, seed: int = 11):
+    """``calls`` calls of the fused step of ``bundle`` (``steps_per_call``
+    ``spc``) on ``banks``, graphed or its plain version, from a fresh
+    state of seed 0 and generators of ``seed``. Returns (state, step,
+    per-call metrics, generators): a graphed step replays only with the
+    state, banks and generators of its first call."""
+    dev = bundle.device
+    if state is None:
+        state = init_state(bundle, 0)
+        step = make_fused_train_step(bundle, bundle.config,
+                                     steps_per_call=spc)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dgen = (torch.Generator(device=dev).manual_seed(seed + 1)
+            if bundle.needs_dropout_gen else None)
+    run = step if graphed else step.plain
+    metrics = [run(state, banks, gen, dgen) for _ in range(calls)]
+    torch.cuda.synchronize()
+    return state, step, metrics, (gen, dgen)
+
+
+def fused_record(state, metrics) -> dict:
+    """Everything a step leaves: weights, BN statistics, Adam's moments
+    and step count, and the metrics of each call, cloned."""
+    rec = {f'w.{k}': v.detach().clone()
+           for k, v in state.module.state_dict().items()}
+    names = {id(p): n for n, p in state.module.named_parameters()}
+    for p, s in state.optimizer.state.items():
+        for k, v in s.items():
+            rec[f'{k}.{names[id(p)]}'] = v.clone()
+    rec['step'] = state.optimizer.param_groups[0]['step'].clone()
+    for i, m in enumerate(metrics):
+        rec.update({f'metric{i}.{k}': v.detach().clone()
+                    for k, v in m.items()})
+    return rec
+
+
+def fused_gap(a: dict, b: dict):
+    """(the largest absolute difference over two records' tensors, the
+    tensor where it lies)."""
+    if set(a) != set(b):
+        raise AssertionError(f'records differ in keys: {set(a) ^ set(b)}')
+    gaps = [(float((a[k].double() - b[k].double()).abs().max())
+             if a[k].numel() else 0.0, k) for k in a]
+    return max(gaps)
+
+
+def hold(what: str, gap, spread) -> None:
+    """Bit for bit, or within two plain runs' own gap where they already
+    differ."""
+    log(f'fused {what}: gap {gap}, plain runs {spread}')
+    if gap[0] > spread[0]:
+        raise AssertionError(f'{what}: gap {gap} beyond the plain runs\' '
+                             f'{spread}')
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms only (``cudnn.benchmark`` still
+    picks among them): two plain runs of one seed then agree bit for bit,
+    where the default algorithms' atomics part them."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def fused_triple(cfg, banks, spc: int, steps: int = 4):
+    """Two plain runs and one graphed run of ``steps`` steps of ``cfg``
+    from one seed: (records, the graphed run's launches, (bundle, state,
+    step, generators) of the graphed run)."""
+    recs = []
+    for graphed in (False, False, True):
+        bundle = get_model(cfg)
+        cuda.reset_launch_counts()
+        state, step, metrics, gens = fused_run(bundle, banks, spc,
+                                               steps // spc, graphed)
+        recs.append(fused_record(state, metrics))
+    return recs, dict(cuda.LAUNCHES), (state, step, gens)
+
+
+def steady_peak(bundle, banks, step=None):
+    """2 plain steps of ``bundle`` (``steps_per_call`` 2), then 2 graphed
+    ones: (state, the graphed call's metrics, the peak device memory in
+    GiB above what was held before each call: (plain, graphed)). cuDNN's
+    algorithm search tries workspaces of tens of GiB at a convolution's
+    first call, and remat's recompute calls some convolutions anew, so
+    the plain steps' peak holds that search and the graphed call's does
+    not."""
+    state = init_state(bundle, 0)
+    if step is None:
+        step = make_fused_train_step(bundle, bundle.config,
+                                     steps_per_call=2)
+    peaks = []
+    for graphed in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, _, metrics, _ = fused_run(bundle, banks, 2, 1, graphed, state,
+                                     step)
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+    return state, metrics, peaks
+
+
+def fused_checks(banks, banks2048) -> dict:
+    """Phase 5g: the fused step (``parallel/train.py``) at full width,
+    batch 12, on float32 banks, for vad v8, eff B0 v1 (stochastic depth)
+    and se v9 pretrain. With cuDNN's deterministic algorithms: the graphed
+    step against its plain version from the same seed (4 steps: weights,
+    BN statistics, Adam's moments and step, the metrics), bit for bit,
+    two plain runs' gap printed beside; the launches of the graphed call,
+    its replays included; for vad v8 and eff B0 v1 ``steps_per_call=4``
+    against 4 calls of 1, ``grad_accum=2`` graphed against its plain
+    version (2 steps each), and ``remat`` against none (2 plain steps,
+    then 2 graphed), bit for bit, with the peaks of ``steady_peak``.
+    With the default algorithms, as the CLI runs: the gap of two plain
+    runs and of the graph to the first, printed; the density trainer's
+    configuration (B4 at 2,048 frames, ``grad_accum=2``) in banks mode
+    with and without remat, with their peaks; and the graphed and the
+    eager step timed in turns (graph, eager, eager, graph), 20 steps each
+    (10 for se), read back once."""
+    start = time.perf_counter()
+    res = {}
+    for name, cfg, spc in (
+            ('vad_v8', Config(model_type='vad', v=8), 4),
+            ('eff_b0_v1', Config(model_type='eff', model=0, v=1), 4),
+            ('se_v9', Config(model_type='se', v=9, pretrain=True), 2)):
+        t0 = time.perf_counter()
+        r = res[name] = {}
+        kernel = ('synth_se_f32' if name == 'se_v9'
+                  else KERNELS[torch.float32][0])
+        with cudnn_deterministic():
+            recs, launches, _ = fused_triple(cfg, banks, spc)
+            check_launches(f'fused {name}', launches, {kernel: 4})
+            r['spread'] = fused_gap(recs[0], recs[1])
+            r['graph_gap'] = fused_gap(recs[0], recs[2])
+            hold(f'{name} graph vs plain', r['graph_gap'], r['spread'])
+            if name != 'se_v9':
+                # steps_per_call 4 against 4 calls of 1, both graphed
+                state, _, metrics, _ = fused_run(get_model(cfg), banks, 1,
+                                                 4, True)
+                single = fused_record(state, [])
+                mean = {f'metric0.{k}': torch.stack(
+                    [m[k] for m in metrics]).mean(0) for k in metrics[0]}
+                del state
+                four = {k: v for k, v in recs[2].items()
+                        if not k.startswith('metric')}
+                r['steps_per_call_gap'] = fused_gap(four, single)
+                hold(f'{name} steps_per_call 4 vs 4 x 1',
+                     r['steps_per_call_gap'], r['spread'])
+                hold(f'{name} steps_per_call 4 vs 4 x 1, metrics',
+                     fused_gap({k: v for k, v in recs[2].items()
+                                if k.startswith('metric')}, mean),
+                     r['spread'])
+                # grad_accum 2, graphed against plain, 2 steps
+                acc, launches, _ = fused_triple(
+                    cfg.replace(grad_accum=2), banks, 2, 2)
+                check_launches(f'fused {name} grad_accum 2', launches,
+                               {kernel: 4})
+                r['grad_accum_spread'] = fused_gap(acc[0], acc[1])
+                r['grad_accum_gap'] = fused_gap(acc[0], acc[2])
+                hold(f'{name} grad_accum 2 graph vs plain',
+                     r['grad_accum_gap'], r['grad_accum_spread'])
+                # remat against no remat, 2 plain steps then 2 graphed;
+                # the peak of the graphed call
+                rm = []
+                for remat in (False, True):
+                    bundle = get_model(cfg.replace(remat=remat))
+                    state, metrics, peaks = steady_peak(bundle, banks)
+                    r[f'peak_gib_remat_{remat}'] = peaks
+                    rm.append(fused_record(state, metrics))
+                    del bundle, state, metrics
+                r['remat_gap'] = fused_gap(rm[0], rm[1])
+                hold(f'{name} remat vs none', r['remat_gap'], r['spread'])
+        # the default algorithms, as the CLI runs: gaps printed; then the
+        # graphed and the eager step timed in turns
+        recs, _, (state, step, (gen, dgen)) = fused_triple(cfg, banks, spc)
+        weights = [{k: v for k, v in rec.items() if k.startswith('w.')}
+                   for rec in recs]
+        r['default_spread'] = fused_gap(recs[0], recs[1])
+        r['default_graph_gap'] = fused_gap(recs[0], recs[2])
+        r['default_weight_spread'] = fused_gap(weights[0], weights[1])
+        r['default_weight_gap'] = fused_gap(weights[0], weights[2])
+        log(f'fused {name}, default algorithms: graph vs plain '
+            f'{r["default_graph_gap"]}, plain runs {r["default_spread"]}; '
+            f'weights {r["default_weight_gap"]}, '
+            f'{r["default_weight_spread"]}')
+        n = 10 if name == 'se_v9' else 20
+        r['fused_step_ms'], r['eager_fused_step_ms'] = [], []
+        for graphed in (True, False, False, True):
+            run = step if graphed else step.plain
+            r['fused_step_ms' if graphed else 'eager_fused_step_ms'].append(
+                wall_ms(lambda: run(state, banks, gen, dgen), n // spc)
+                / spc)
+        del state, step, recs, weights
+        r['seconds'] = time.perf_counter() - t0
+        log(f'fused {name}: {json.dumps(r)}')
+    # the density trainer's configuration: B4 at 2,048 frames, grad_accum
+    # 2, through banks mode, with and without remat
+    t0 = time.perf_counter()
+    ns = density_args(['--grad_accum', '2'])
+    dens = []
+    for remat in (False, True):
+        cfg = trainer.to_config(ns).replace(remat=remat)
+        bundle = get_density_model(cfg, seed=cfg.seed)
+        step = make_fused_train_step(bundle, cfg, trainer.make_loss_fn(ns),
+                                     variant='density', steps_per_call=2)
+        state, metrics, res[f'density_peak_gib_remat_{remat}'] = \
+            steady_peak(bundle, banks2048, step)
+        if not all(math.isfinite(float(v)) for v in metrics[0].values()):
+            raise AssertionError(f'density remat {remat}: {metrics}')
+        dens.append(fused_record(state, metrics))
+        del bundle, state, step
+    res['density_remat_gap'] = fused_gap(dens[0], dens[1])
+    res['density_s'] = time.perf_counter() - t0
+    res['fused_5g_s'] = time.perf_counter() - start
+    log(f'phase 5g: {res["fused_5g_s"]:.3f} s')
+    return res
 
 
 def density_args(extra=()):
@@ -1939,6 +2182,8 @@ def main(argv) -> int:
     log(f'phase 5e: {time.perf_counter() - t0:.3f} s')
     # 5f. this slice's main path: the density trainer through B1 and B4
     density = density_main_path(banks2048['float32'])
+    # 5g. this slice's main path: the fused step, graphed and plain
+    fused_res = fused_checks(banks['float32'], banks2048['float32'])
     del banks2048
 
     # 6. times: each kernel on the main path's draws (the flat-complex
@@ -2139,6 +2384,7 @@ def main(argv) -> int:
         'density_launches': {**density['density_launches'],
                              'cli_int8': cli['density_int8_launches']},
         'card': smi}))
+    log('FUSED ' + json.dumps({**fused_res, 'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
                              if not k.endswith('launches')
                              and not k.startswith('density')}))

@@ -617,6 +617,6 @@ def test_reduce_lr_on_plateau_matches_jax():
         jcall.on_epoch_end(epoch, dict(logs))
         pcall.on_epoch_end(epoch, dict(logs))
         jlr.append(float(jloop.state.opt_state.hyperparams['learning_rate']))
-        plr.append(ploop.state.optimizer.param_groups[0]['lr'])
+        plr.append(float(ploop.state.optimizer.param_groups[0]['lr']))
     np.testing.assert_allclose(plr, jlr, rtol=1e-6)
     assert len(set(np.round(plr, 12))) == 4          # three cuts

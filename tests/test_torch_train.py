@@ -159,16 +159,17 @@ def test_params_and_bn_stats_match_jax(port_run, jax_run):
 
 
 def test_adam_moments_match_jax(port_run, jax_run):
-    """Keras Adam keeps m and v per parameter; JAX's sit in the chain
-    clip -> scale_by_keras_adam -> scale_by_learning_rate."""
+    """Keras Adam keeps m and v per parameter and its step count per
+    parameter group; JAX's sit in the chain clip -> scale_by_keras_adam ->
+    scale_by_learning_rate."""
     adam = jax_run[0].opt_state.inner_state[1]
     assert int(adam.count) == STEPS
     state = port_run[0]
+    assert int(state.optimizer.param_groups[0]['step']) == STEPS
     names = {id(p): n for n, p in state.module.named_parameters()}
     for which in ('m', 'v'):
         ref = flax_to_state_dict({'params': getattr(adam, which)})
         for p, s in state.optimizer.state.items():
-            assert s['step'] == STEPS
             np.testing.assert_allclose(
                 s[which].numpy(), ref[names[id(p)]].numpy(), rtol=1e-5,
                 atol=1e-5, err_msg=f'{which} {names[id(p)]}')
