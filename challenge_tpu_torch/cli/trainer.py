@@ -136,9 +136,10 @@ def to_config(ns) -> Config:
 
 def refuse_unported(config: Config) -> None:
     """n_chan != 2 (ROADMAP C9), ``--n_devices`` (ROADMAP A14) and the
-    checkpoint flags (ROADMAP A15). The model refuses ``--compute_dtype
-    bfloat16``, and the banks ``--stream_chunks`` and ``--bank_shard``,
-    all before any data is read."""
+    checkpoint flags (ROADMAP A15). The banks refuse ``--stream_chunks``
+    and ``--bank_shard``, all before any data is read. ``--compute_dtype
+    bfloat16`` trains: the model computes in it, and its checkpoints stay
+    float32."""
     if config.n_chan != 2:
         raise ValueError(
             f'n_chan={config.n_chan}: the density features keep 2 channels '

@@ -13,11 +13,12 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``; raises when CUDA is asked for and absent.
 
-    On CUDA it also sets three process-wide backend flags. It pins float32
+    On CUDA it also sets four process-wide backend flags. It pins float32
     numerics: cuDNN would otherwise run float32 convolutions in TF32 (about
     three decimal digits), while the JAX reference computes them in full
     float32. ``matmul.allow_tf32`` is already False by default and stays
-    so. And it lets cuDNN time its algorithms once per shape
+    so. It keeps cuBLAS from summing bfloat16 products in bfloat16 (its
+    split-K may), since XLA sums them in float32. And it lets cuDNN time its algorithms once per shape
     (``cudnn.benchmark``): for vad v8's float32 convolutions the heuristic
     picks FFT-tiled algorithms of some 66,000 small GEMM launches a step.
     On an H100 at 700 W the full-width model step took 737-844 ms with the
@@ -32,6 +33,8 @@ def resolve_device(device=None) -> torch.device:
                 "is available; pass device='cpu' to run on the CPU")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         torch.backends.cudnn.benchmark = True
         if device.index is None:    # comparable with a tensor's .device
             device = torch.device('cuda', torch.cuda.current_device())

@@ -47,8 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from challenge_tpu_torch.models.layers import (
-    BatchNorm, BiGRU, FullyConnectedLayer, kernel_fan_in, lecun_normal_,
-    remat_draw)
+    BatchNorm, BiGRU, Conv1d, Conv2d, ConvTranspose1d, FullyConnectedLayer,
+    Linear, kernel_fan_in, lecun_normal_, remat_draw, set_compute_dtype)
 
 # (width_coefficient, depth_coefficient) per variant B0..B7
 SCALING = {
@@ -88,7 +88,7 @@ def same_pads(n: int, k: int, s: int):
     return p // 2, p - p // 2
 
 
-class Conv2dSame(nn.Conv2d):
+class Conv2dSame(Conv2d):
     """A bias-free square conv with TF 'SAME' padding: stride 1 with an
     odd kernel pads k // 2 on each side inside the conv; a strided one is
     padded by hand from its input's size."""
@@ -121,12 +121,12 @@ class MBConv(nn.Module):
         filters = f_in * expand_ratio
         se = max(1, int(f_in * 0.25))
         self.expand = expand_ratio != 1
-        convs = [nn.Conv2d(f_in, filters, 1, bias=False)] if self.expand \
+        convs = [Conv2d(f_in, filters, 1, bias=False)] if self.expand \
             else []
         self.convs = nn.ModuleList(convs + [
             Conv2dSame(filters, filters, kernel, stride, groups=filters),
-            nn.Conv2d(filters, se, 1), nn.Conv2d(se, filters, 1),
-            nn.Conv2d(filters, f_out, 1, bias=False)])
+            Conv2d(filters, se, 1), Conv2d(se, filters, 1),
+            Conv2d(filters, f_out, 1, bias=False)])
         self.bns = nn.ModuleList(
             BatchNorm(c) for c in [filters] * (1 + self.expand) + [f_out])
         self.residual = stride == 1 and f_in == f_out
@@ -135,9 +135,10 @@ class MBConv(nn.Module):
     def keep_mask(self, x, gen: torch.Generator):
         """[B, 1, 1, 1] bool: each sample's branch kept with probability
         1 - rate, drawn from ``gen`` (flax: ``bernoulli(key, 1 - rate)``,
-        a uniform below 1 - rate)."""
+        a uniform below 1 - rate), in float32 at least, whatever the
+        activations' dtype."""
         u = torch.rand((x.shape[0], 1, 1, 1), generator=gen, device=x.device,
-                       dtype=x.dtype)
+                       dtype=torch.promote_types(x.dtype, torch.float32))
         return u < 1.0 - self.drop_rate
 
     def forward(self, x, gen: Optional[torch.Generator] = None):
@@ -184,7 +185,7 @@ class EfficientNetBackbone(nn.Module):
                     drop_rate=DROP_CONNECT_RATE * len(blocks) / total))
         self.blocks = nn.ModuleList(blocks)
         self.features = round_filters(1280, width)
-        self.head = nn.Conv2d(f_out, self.features, 1, bias=False)
+        self.head = Conv2d(f_out, self.features, 1, bias=False)
         self.head_bn = BatchNorm(self.features)
 
     def forward(self, x, gen: Optional[torch.Generator] = None):
@@ -198,14 +199,17 @@ class TimeAxisResample(nn.Module):
     """A learned linear map over the time axis, per feature (counterpart:
     ``effnet.py:145-154``; reference: sj_train.py:379, ``Conv1D(target, 1,
     data_format='channels_first')``): [B, T, D] -> [B, target, D] with a
-    [T, target] weight."""
+    [T, target] weight. It has no compute dtype, as in JAX: a bfloat16
+    input and the float32 weight promote to float32 (effnet.py:145-157),
+    and the BatchNorm after it casts back."""
 
     def __init__(self, t_in: int, target: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(t_in, target))
 
     def forward(self, x):
-        return torch.einsum('btd,tn->bnd', x, self.weight)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return torch.einsum('btd,tn->bnd', x.to(dt), self.weight.to(dt))
 
 
 class EffNetSED(nn.Module):
@@ -215,11 +219,21 @@ class EffNetSED(nn.Module):
     generator of stochastic depth, as JAX's needs a dropout key.
     ``head='density'`` ignores ``v`` (JAX builds it with v=0) and ends in a
     relu; its Dense stays the last of ``denses``, flax's
-    ``Dense_{n_layers}``."""
+    ``Dense_{n_layers}``. ``dtype`` is the compute dtype of every layer
+    (``layers.set_compute_dtype``); the output is float32.
+
+    With a bfloat16 ``dtype``, as flax's ``dtype=`` does: the input is
+    cast at entry, v7's gate reads the cast input (effnet.py:209-213),
+    the BiGRU returns its float32 carry, so v6's FC stack and v7's gated
+    product start from float32, and v5's time map promotes to float32
+    before its BatchNorm."""
+
+    compute_dtype = None
 
     def __init__(self, model: int = 0, v: int = 1, n_classes: int = 3,
                  n_layers: int = 0, n_dim: int = 256, n_frame: int = 512,
-                 n_mels: int = 80, n_chan: int = 2, head: str = 'sed'):
+                 n_mels: int = 80, n_chan: int = 2, head: str = 'sed',
+                 dtype=None):
         super().__init__()
         if head not in ('sed', 'density'):
             raise ValueError(f'unknown head {head!r}')
@@ -238,13 +252,13 @@ class EffNetSED(nn.Module):
         d = mel_out * self.backbone.features
         denses, bns = [], []
         for _ in range(n_layers):             # the gated stack
-            denses.append(nn.Linear(d, n_dim))
+            denses.append(Linear(d, n_dim))
             bns.append(BatchNorm(n_dim, feature_dim=-1))
             d = n_dim
         self.ups = self.resample = self.gru = self.fcs = self.gate = None
         if v == 1:
             widths = (d, 128, 64, 32, 16, 3)
-            self.ups = nn.ModuleList(nn.ConvTranspose1d(a, b, 2, stride=2)
+            self.ups = nn.ModuleList(ConvTranspose1d(a, b, 2, stride=2)
                                      for a, b in zip(widths, widths[1:]))
             d = 3
         elif v == 5:
@@ -254,7 +268,7 @@ class EffNetSED(nn.Module):
                 bns.append(BatchNorm(d, feature_dim=-1))
         elif v == 7:
             # over the raw input's mel axis, channels frame * n_chan + chan
-            self.gate = nn.Conv1d(n_frame * n_chan, 256, 16, stride=5)
+            self.gate = Conv1d(n_frame * n_chan, 256, 16, stride=5)
         if v in (5, 6, 7):
             self.gru = BiGRU(d, 128)
             d = 256
@@ -262,9 +276,10 @@ class EffNetSED(nn.Module):
             self.fcs = nn.ModuleList(FullyConnectedLayer(a, b) for a, b in
                                      ((256, 256), (256, 128), (128, 64)))
             d = 64
-        denses.append(nn.Linear(d, n_classes))
+        denses.append(Linear(d, n_classes))
         self.denses = nn.ModuleList(denses)
         self.bns = nn.ModuleList(bns)
+        set_compute_dtype(self, dtype)
 
     def reset_parameters(self, gen: torch.Generator = None) -> None:
         """Re-draw every weight from ``gen`` (flax's default initializers:
@@ -292,8 +307,9 @@ class EffNetSED(nn.Module):
         if x.shape[-1] != self.n_chan:
             raise ValueError(f'input has {x.shape[-1]} channels, the model '
                              f'takes {self.n_chan}')
-        # compute in the weights' dtype; the output is float32 like JAX's
-        x = x.to(self.denses[-1].weight.dtype)
+        # compute in compute_dtype or the weights' dtype; the output is
+        # float32 like JAX's
+        x = x.to(self.compute_dtype or self.denses[-1].weight.dtype)
         out = self.backbone(x.permute(0, 3, 1, 2), gen)  # [B, C, mel', T']
         # time-major [B, T', mel' * C], C fastest, as JAX's flatten
         out = out.permute(0, 3, 2, 1)

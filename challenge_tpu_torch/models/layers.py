@@ -14,6 +14,19 @@ head's Dense layers and BatchNorms take [B, T, D]. Keras parity:
   zero biases, BN scale 1 and bias 0, running mean 0 and variance 1; the
   LSTM's and the GRU's recurrent kernels orthogonal.
 
+Mixed precision (``config.compute_dtype='bfloat16'``) follows flax's
+``dtype=``, an explicit cast in each layer, not ``torch.autocast``'s op
+lists: the parameters stay float32; a conv, transposed conv or Linear
+(:class:`Conv1d`, :class:`Conv2d`, :class:`ConvTranspose1d`,
+:class:`ConvTranspose2d`, :class:`Linear`) casts its input, weight and
+bias to ``compute_dtype`` and adds the bias after the product, as flax's
+``y = dot(x, k); y += b``; :class:`BatchNorm` takes its statistics and
+normalizes in float32 (at least) and returns ``compute_dtype``; the
+LSTM's and GRU's products run in ``compute_dtype`` while their carry
+stays in the parameters' dtype, as flax's ``initialize_carry`` makes it
+in ``param_dtype``. :func:`set_compute_dtype` sets it on every such layer
+of a model; ``None`` (the default) computes in the weights' dtype.
+
 Rematerialisation (``config.remat``, JAX's ``jax.checkpoint``) runs the
 training forward twice under ``torch.utils.checkpoint``, where JAX's pure
 forward has nothing to repeat. :func:`remat_contexts` keeps the second
@@ -59,6 +72,85 @@ def kernel_fan_in(layer: nn.Module) -> int:
     return w[0].numel()
 
 
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Set ``compute_dtype`` (a torch dtype, or ``None`` for the weights'
+    own) on every layer of ``module`` that has one."""
+    for m in module.modules():
+        if hasattr(type(m), 'compute_dtype'):
+            m.compute_dtype = dtype
+
+
+def _cast(t, dtype):
+    return t if dtype is None or t is None else t.to(dtype)
+
+
+def _add_bias(y, bias, dtype, dim: int = 1):
+    """``y + bias`` along ``dim``, the bias cast to ``dtype`` (flax adds
+    it after the product, in the compute dtype)."""
+    if bias is None:
+        return y
+    shape = [1] * y.ndim
+    shape[dim] = -1
+    return y + bias.to(dtype).reshape(shape)
+
+
+class _ConvCast:
+    """A conv whose product runs in ``compute_dtype`` (see the module
+    docstring)."""
+
+    compute_dtype = None
+
+    def _conv_forward(self, x, weight, bias):
+        dt = self.compute_dtype
+        if dt is None:
+            return super()._conv_forward(x, weight, bias)
+        y = super()._conv_forward(x.to(dt), weight.to(dt), None)
+        return _add_bias(y, bias, dt)
+
+
+class Conv1d(_ConvCast, nn.Conv1d):
+    pass
+
+
+class Conv2d(_ConvCast, nn.Conv2d):
+    pass
+
+
+class _ConvTransposeCast:
+    compute_dtype = None
+    _fn = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = type(self)._fn(x.to(dt), self.weight.to(dt), None, self.stride,
+                           self.padding, self.output_padding, self.groups,
+                           self.dilation)
+        return _add_bias(y, self.bias, dt)
+
+
+class ConvTranspose1d(_ConvTransposeCast, nn.ConvTranspose1d):
+    _fn = staticmethod(F.conv_transpose1d)
+
+
+class ConvTranspose2d(_ConvTransposeCast, nn.ConvTranspose2d):
+    _fn = staticmethod(F.conv_transpose2d)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose product runs in ``compute_dtype``."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return _add_bias(F.linear(x.to(dt), self.weight.to(dt)), self.bias,
+                         dt, -1)
+
+
 # (draws, replaying) of the checkpointed forward that runs, if any: one
 # global, not a thread-local, since the recompute runs in autograd's
 # device thread
@@ -97,7 +189,13 @@ def remat_draw(draw):
 
 
 class BatchNorm(nn.Module):
-    """Keras-default BatchNormalization over every axis but ``feature_dim``."""
+    """Keras-default BatchNormalization over every axis but ``feature_dim``.
+    Statistics and normalization run in float32 at least, whatever the
+    input's dtype, and the running statistics stay in the parameters'
+    dtype; the output is ``compute_dtype`` when set (flax:
+    ``_compute_stats`` upcasts, ``_normalize`` casts the result)."""
+
+    compute_dtype = None
 
     def __init__(self, features: int, feature_dim: int = 1,
                  momentum: float = 0.99, eps: float = 1e-3):
@@ -118,6 +216,7 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x):
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         dim = self.feature_dim % x.ndim
         axes = tuple(i for i in range(x.ndim) if i != dim)
         shape = [1] * x.ndim
@@ -134,7 +233,8 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = x - mean.reshape(shape)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return y * mul.reshape(shape) + self.bias.reshape(shape)
+        return _cast(y * mul.reshape(shape) + self.bias.reshape(shape),
+                     self.compute_dtype)
 
 
 class ConvMPBlock(nn.Module):
@@ -144,8 +244,8 @@ class ConvMPBlock(nn.Module):
     def __init__(self, in_ch: int, fsize: int, num_convs: int = 2):
         super().__init__()
         self.convs = nn.ModuleList(
-            nn.Conv2d(in_ch if i == 0 else fsize, fsize, 3, padding=1,
-                      bias=False)
+            Conv2d(in_ch if i == 0 else fsize, fsize, 3, padding=1,
+                   bias=False)
             for i in range(num_convs))
         self.bns = nn.ModuleList(BatchNorm(fsize) for _ in range(num_convs))
 
@@ -166,7 +266,7 @@ class FullyConnectedLayer(nn.Module):
     def __init__(self, in_features: int, nodes: int, act=F.relu,
                  use_bn: bool = True):
         super().__init__()
-        self.dense = nn.Linear(in_features, nodes, bias=not use_bn)
+        self.dense = Linear(in_features, nodes, bias=not use_bn)
         self.bn = BatchNorm(nodes, feature_dim=-1) if use_bn else None
         self.act = act
 
@@ -193,9 +293,9 @@ class Bottleneck(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
         self.convs = nn.ModuleList([
-            nn.Conv2d(ch, ch // 4, 1, bias=False),
-            nn.Conv2d(ch // 4, ch // 4, 3, padding=1, bias=False),
-            nn.Conv2d(ch // 4, ch, 1, bias=False)])
+            Conv2d(ch, ch // 4, 1, bias=False),
+            Conv2d(ch // 4, ch // 4, 3, padding=1, bias=False),
+            Conv2d(ch // 4, ch, 1, bias=False)])
         self.bns = nn.ModuleList(BatchNorm(c) for c in (ch // 4, ch // 4, ch))
 
     def reset_parameters(self, gen=None) -> None:
@@ -225,7 +325,12 @@ class LSTM(nn.Module):
     in (i, f, g, o) order: pre = (h W_h + b) + x W_i, sigmoid for i, f and
     o, tanh for g; c' = f c + i g, h' = o tanh(c'); the state starts at
     zero. ``reverse`` scans from the last frame and keeps the output in
-    frame order (``reverse=True, keep_order=True``)."""
+    frame order (``reverse=True, keep_order=True``). With ``compute_dtype``
+    the products and gates run in it, and c and h stay in the weights'
+    dtype, as flax's carry does: f c + i g and o tanh(c') promote to it,
+    and the output is h in that dtype."""
+
+    compute_dtype = None
 
     def __init__(self, in_features: int, features: int,
                  reverse: bool = False):
@@ -246,16 +351,18 @@ class LSTM(nn.Module):
             nn.init.zeros_(lin.bias)
 
     def forward(self, x):
+        dt = self.compute_dtype
         w_i = torch.cat([self.gates['i' + g].weight for g in _GATES])
         w_h = torch.cat([self.gates['h' + g].weight for g in _GATES])
         b_h = torch.cat([self.gates['h' + g].bias for g in _GATES])
-        xw = torch.matmul(x, w_i.T)                      # [B, T, 4H]
-        h = x.new_zeros((x.shape[0], w_h.shape[1]))
+        h = w_h.new_zeros((x.shape[0], w_h.shape[1]))   # the carry
         c = torch.zeros_like(h)
+        w_i, w_h, b_h, x = (_cast(t, dt) for t in (w_i, w_h, b_h, x))
+        xw = torch.matmul(x, w_i.T)                      # [B, T, 4H]
         steps = range(x.shape[1])
         outs = [None] * x.shape[1]
         for t in (reversed(steps) if self.reverse else steps):
-            pre = (torch.matmul(h, w_h.T) + b_h) + xw[:, t]
+            pre = (torch.matmul(_cast(h, dt), w_h.T) + b_h) + xw[:, t]
             i, f, g, o = pre.chunk(4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
@@ -294,7 +401,11 @@ class GRU(nn.Module):
     r = sigmoid(x W_ir + b_ir + h W_hr), z = sigmoid(x W_iz + b_iz + h W_hz),
     n = tanh(x W_in + b_in + r (h W_hn + b_hn)), h' = (1 - z) n + z h.
     ``reverse`` scans from the last frame and keeps the output in frame
-    order."""
+    order. With ``compute_dtype`` the products and gates run in it and h
+    stays in the weights' dtype, as the LSTM's carry does: z h, and so h',
+    promote to it."""
+
+    compute_dtype = None
 
     def __init__(self, in_features: int, features: int,
                  reverse: bool = False):
@@ -320,13 +431,16 @@ class GRU(nn.Module):
         b_i = torch.cat([self.gates['i' + g].bias for g in 'rzn'])
         w_h = torch.cat([self.gates['h' + g].weight for g in 'rzn'])
         b_hn = self.gates['hn'].bias
+        dt = self.compute_dtype
+        h = w_h.new_zeros((x.shape[0], w_h.shape[1]))   # the carry
+        w_i, b_i, w_h, b_hn, x = (_cast(t, dt)
+                                  for t in (w_i, b_i, w_h, b_hn, x))
         xw = torch.matmul(x, w_i.T) + b_i                # [B, T, 3H]
-        h = x.new_zeros((x.shape[0], w_h.shape[1]))
         steps = range(x.shape[1])
         outs = [None] * x.shape[1]
         for t in (reversed(steps) if self.reverse else steps):
             xr, xz, xn = xw[:, t].chunk(3, dim=-1)
-            hr, hz, hn = torch.matmul(h, w_h.T).chunk(3, dim=-1)
+            hr, hz, hn = torch.matmul(_cast(h, dt), w_h.T).chunk(3, dim=-1)
             r = torch.sigmoid(xr + hr)
             z = torch.sigmoid(xz + hz)
             n = torch.tanh(xn + r * (hn + b_hn))

@@ -47,11 +47,12 @@ class ModelBundle:
         return [n.startswith('se.') == pretrain for n in names]
 
 
-def _refuse_compute_dtype(config: Config) -> None:
-    if getattr(config, 'compute_dtype', 'float32') != 'float32':
-        raise NotImplementedError(
-            f'compute_dtype={config.compute_dtype} is not ported yet '
-            '(ROADMAP A14)')
+def _dtype(config: Config):
+    """The compute dtype of ``config.compute_dtype`` (counterpart:
+    ``registry.py:89-91``): bfloat16 for 'bfloat16' or 'bf16', else
+    ``None``, the weights' own float32."""
+    name = getattr(config, 'compute_dtype', 'float32')
+    return torch.bfloat16 if str(name) in ('bfloat16', 'bf16') else None
 
 
 def _eff_bundle(config: Config, device, seed: int, model: int,
@@ -60,7 +61,7 @@ def _eff_bundle(config: Config, device, seed: int, model: int,
         model=model, v=config.v, n_classes=config.n_classes,
         n_layers=config.n_layers, n_dim=config.n_dim,
         n_frame=config.n_frame, n_mels=config.n_mels,
-        n_chan=config.n_chan, head=head).to(device)
+        n_chan=config.n_chan, head=head, dtype=_dtype(config)).to(device)
     bundle = ModelBundle(module, (config.n_mels, config.n_frame,
                                   config.n_chan), config, device,
                          needs_dropout_gen=True)
@@ -70,14 +71,15 @@ def _eff_bundle(config: Config, device, seed: int, model: int,
 
 def get_model(config: Config, device=None, seed: int = 0) -> ModelBundle:
     """Build the model family of ``config.model_type`` on ``device``
-    (default ``cuda``), weights drawn from ``seed``."""
+    (default ``cuda``), weights drawn from ``seed``, float32 weights
+    computing in ``config.compute_dtype``."""
     device = resolve_device(device)
-    _refuse_compute_dtype(config)
     if config.model_type == 'vad':
         module = VADModel(
             v=config.v, n_classes=config.n_classes,
             base_fsize=48 if config.v == 8 else 32,
-            n_mels=config.n_mels, n_chan=config.n_chan).to(device)
+            n_mels=config.n_mels, n_chan=config.n_chan,
+            dtype=_dtype(config)).to(device)
         bundle = ModelBundle(module, (config.n_mels, config.n_frame,
                                       config.n_chan), config, device)
         bundle.init(seed)
@@ -91,7 +93,8 @@ def get_model(config: Config, device=None, seed: int = 0) -> ModelBundle:
             raise ValueError(f'se v{config.v} cannot train or evaluate: '
                              'only se v9 has a loss and an eval branch')
         module = SECascade(n_classes=config.n_classes,
-                           pretrain=bool(config.pretrain)).to(device)
+                           pretrain=bool(config.pretrain),
+                           dtype=_dtype(config)).to(device)
         # input: the speech_enhancement_preprocess layout, 256 freq rows
         bundle = ModelBundle(module, (256, config.n_frame, config.n_chan),
                              config, device, multi_output=True)
@@ -114,6 +117,5 @@ def get_density_model(config: Config, device=None,
     ``cuda``), weights drawn from ``seed``. Its training forward takes the
     generator of stochastic depth, as the eff family's does."""
     device = resolve_device(device)
-    _refuse_compute_dtype(config)
     return _eff_bundle(config, device, seed, parse_model_id(config.model),
                        'density')

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from challenge_tpu_torch.models.layers import (
-    BatchNorm, ConvMPBlock, kernel_fan_in, lecun_normal_)
+    BatchNorm, Conv2d, ConvMPBlock, ConvTranspose2d, kernel_fan_in,
+    lecun_normal_, set_compute_dtype)
 from challenge_tpu_torch.models.vad import VADModel
 
 WIDTHS = (64, 128, 256, 512)
@@ -41,9 +42,9 @@ class Upsampling(nn.Module):
 
     def __init__(self, in_ch: int, chan: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, chan, 3, padding=1, bias=False)
+        self.conv = Conv2d(in_ch, chan, 3, padding=1, bias=False)
         self.bn = BatchNorm(chan)
-        self.up = nn.ConvTranspose2d(chan, chan, 2, stride=2)
+        self.up = ConvTranspose2d(chan, chan, 2, stride=2)
 
     def reset_parameters(self, gen=None) -> None:
         lecun_normal_(self.conv.weight, kernel_fan_in(self.conv), gen)
@@ -95,9 +96,14 @@ class SECascade(nn.Module):
     (DC row dropped, real half of the two channels). Output (class
     [B, n_frame / 32, n_classes] from the ReLU head, speech [B, 256,
     n_frame, 2], noise [B, 256, n_frame, 2]), all float32. The head is the
-    same for every version (``vad_variant=False``); only v9 trains."""
+    same for every version (``vad_variant=False``); only v9 trains.
+    ``dtype`` is the compute dtype of both halves: the U-Net's outputs are
+    cast to float32 (senet.py:110-111) and the head casts them again."""
 
-    def __init__(self, n_classes: int = 3, pretrain: bool = False):
+    compute_dtype = None
+
+    def __init__(self, n_classes: int = 3, pretrain: bool = False,
+                 dtype=None):
         super().__init__()
         self.pretrain = pretrain
         self.se = SpeechEnhancementModel()
@@ -106,6 +112,7 @@ class SECascade(nn.Module):
         # model_type == 'vad' (sj_train.py:254, 312-318)
         self.vad = VADModel(v=9, n_classes=n_classes, n_mels=256, n_chan=2,
                             vad_variant=False, final_act='relu')
+        set_compute_dtype(self, dtype)
 
     def reset_parameters(self, gen=None) -> None:
         self.se.reset_parameters(gen)
@@ -123,7 +130,8 @@ class SECascade(nn.Module):
         return self
 
     def forward(self, x):
-        x = x.to(self.vad.td.weight.dtype)       # bf16 spectra -> float32
+        # bf16 spectra -> compute_dtype or the weights' dtype
+        x = x.to(self.compute_dtype or self.vad.td.weight.dtype)
         speech, noise = self.se(x.permute(0, 3, 2, 1))   # [B, C, T, 256]
         speech = speech.permute(0, 3, 2, 1).float()      # [B, 256, T, 2]
         noise = noise.permute(0, 3, 2, 1).float()

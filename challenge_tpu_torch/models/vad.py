@@ -19,8 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from challenge_tpu_torch.models.layers import (
-    BiLSTM, Bottleneck, ConvMPBlock, FullyConnectedLayer, lecun_normal_,
-    smoothing_pool)
+    BiLSTM, Bottleneck, ConvMPBlock, FullyConnectedLayer, Linear,
+    lecun_normal_, set_compute_dtype, smoothing_pool)
 
 SMOOTH_SECONDS = 0.5                 # v6's pools (reference: sj_train.py:226)
 
@@ -35,11 +35,19 @@ class VADModel(nn.Module):
     which flax infers at init. The state_dict follows flax's variables:
     ``blocks.i`` is ``ConvMPBlock_i``, ``fcs.i`` is
     ``FullyConnectedLayer_i``, ``bottlenecks`` are v7's top-level
-    ``Conv_*`` and ``BatchNorm_*`` in threes, ``lstm`` is ``BiLSTM_0``."""
+    ``Conv_*`` and ``BatchNorm_*`` in threes, ``lstm`` is ``BiLSTM_0``.
+
+    ``dtype`` is the compute dtype of every layer
+    (``layers.set_compute_dtype``): the input is cast to it at entry
+    (vad.py:37) and the output is float32 (vad.py:84); v9's BiLSTM returns
+    its float32 carry, which FC 64 casts again."""
+
+    compute_dtype = None
 
     def __init__(self, v: int = 1, n_classes: int = 3, base_fsize: int = 32,
                  td_dim: int = 1024, n_mels: int = 80, n_chan: int = 2,
-                 vad_variant: bool = True, final_act: str = 'sigmoid'):
+                 vad_variant: bool = True, final_act: str = 'sigmoid',
+                 dtype=None):
         super().__init__()
         self.v = v
         self.n_chan = n_chan
@@ -55,7 +63,7 @@ class VADModel(nn.Module):
         mel_out = n_mels
         for _ in range(5):
             mel_out = -(-mel_out // 2)
-        self.td = nn.Linear(mel_out * widths[-1], td_dim)   # TimeDistributed
+        self.td = Linear(mel_out * widths[-1], td_dim)   # TimeDistributed
         v9 = vad_variant and v == 9
         nodes = [td_dim] + ([512] if v9 else []) + [256, 128]
         # the BiLSTM runs after FC 128 (fcs[lstm_after]) and doubles it
@@ -67,6 +75,7 @@ class VADModel(nn.Module):
                FullyConnectedLayer(
                    64, n_classes, use_bn=False,
                    act=torch.sigmoid if final_act == 'sigmoid' else F.relu)])
+        set_compute_dtype(self, dtype)
 
     def reset_parameters(self, gen: torch.Generator = None) -> None:
         """Re-draw every weight from ``gen`` (flax's default initializers)."""
@@ -89,8 +98,10 @@ class VADModel(nn.Module):
                      'step fails the same way)' if self.n_chan == 1 else '')
             raise ValueError(f'input has {x.shape[-1]} channels, the model '
                              f'takes {self.n_chan}{quirk}')
-        # compute in the weights' dtype; the output is float32 like JAX's
-        x = x.to(self.td.weight.dtype).permute(0, 3, 1, 2)  # [B, C, mels, T]
+        # compute in compute_dtype or the weights' dtype; the output is
+        # float32 like JAX's
+        x = x.to(self.compute_dtype or self.td.weight.dtype)
+        x = x.permute(0, 3, 1, 2)                           # [B, C, mels, T]
         for i, block in enumerate(self.blocks):
             if i > 0 and self.smooth:
                 # kernel from the current time width (reference: 225-229)

@@ -1,6 +1,12 @@
-"""Gradient clipping, the Keras Adam and AdaBelief rules and the LR schedule
-(counterpart: ``challenge_tpu/train/optim.py``; reference:
-sj_train.py:133-155, 434-442, utils.py:140-288, 350-366)."""
+"""Gradient clipping, the Keras Adam, AdaBelief, SGD and RMSprop rules and
+the LR schedule (counterpart: ``challenge_tpu/train/optim.py``; reference:
+sj_train.py:133-155, 434-442, utils.py:140-288, 350-366).
+
+Every optimizer keeps each parameter group's learning rate
+``group['lr']`` as a 0-dim tensor on its parameters' device, in their
+dtype, so a captured step reads it anew at each replay; change it with
+``group['lr'].fill_(...)``. Each clips the gradient's values at
+``clipvalue`` first, as Keras' ``clipvalue=`` does."""
 
 from __future__ import annotations
 
@@ -105,10 +111,9 @@ class KerasAdam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, clipvalue=clipvalue,
                                       beta_1=beta_1, beta_2=beta_2,
                                       epsilon=epsilon))
+        _device_lr(self)
         for group in self.param_groups:
             p = group['params'][0]
-            group['lr'] = torch.tensor(float(group['lr']), dtype=p.dtype,
-                                       device=p.device)
             group['step'] = torch.zeros((), dtype=torch.int64,
                                         device=p.device)
 
@@ -123,15 +128,10 @@ class KerasAdam(torch.optim.Optimizer):
     def step(self, closure=None):
         for group in self.param_groups:
             b1, b2 = group['beta_1'], group['beta_2']
-            clip, lr = group['clipvalue'], group['lr']
+            lr = group['lr']
             group['step'].add_(1)
             corr = bias_correction(group['step'], b1, b2)
-            for p in group['params']:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                if clip is not None:
-                    g = g.clamp(-clip, clip)
+            for p, g in _clipped_grads(group):
                 state = self.state[p]
                 if not state:
                     state['m'] = torch.zeros_like(p)
@@ -171,15 +171,101 @@ class AdaBelief(KerasAdam):
         return state['vhat']
 
 
+class KerasSGD(torch.optim.Optimizer):
+    """Keras ``SGD(lr, momentum=0.9, clipvalue=...)`` (counterpart:
+    ``keras_sgd_momentum``, optim.py:146-161; reference: sj_train.py:
+    436-437). The rate rides inside the momentum buffer, so a rate change
+    decays in over some 1 / (1 - momentum) steps:
+
+        accum = momentum*accum - lr*g;  p = p + accum
+
+    ``accum`` lives in ``self.state[p]``."""
+
+    def __init__(self, params, lr: float = 1e-3, clipvalue=None,
+                 momentum: float = 0.9):
+        super().__init__(params, dict(lr=lr, clipvalue=clipvalue,
+                                      momentum=momentum))
+        _device_lr(self)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p, g in _clipped_grads(group):
+                state = self.state[p]
+                if not state:
+                    state['accum'] = torch.zeros_like(p)
+                accum = state['accum']
+                accum.mul_(group['momentum']).sub_(group['lr'] * g)
+                p.add_(accum)
+        return None
+
+
+class KerasRMSprop(torch.optim.Optimizer):
+    """Keras ``RMSprop(lr, rho=0.9, momentum=0.9, clipvalue=...)``
+    (counterpart: ``keras_rmsprop``, optim.py:169-189; reference:
+    sj_train.py:438-439), with eps inside the root, where Keras' momentum
+    kernel puts it, and the rate inside the momentum buffer:
+
+        ms = rho*ms + (1-rho)*g^2;  mom = momentum*mom + lr*g/sqrt(ms + eps)
+        p = p - mom
+
+    ``ms`` and ``mom`` live in ``self.state[p]``."""
+
+    def __init__(self, params, lr: float = 1e-3, clipvalue=None,
+                 rho: float = 0.9, momentum: float = 0.9,
+                 epsilon: float = 1e-7):
+        super().__init__(params, dict(lr=lr, clipvalue=clipvalue, rho=rho,
+                                      momentum=momentum, epsilon=epsilon))
+        _device_lr(self)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            rho = group['rho']
+            for p, g in _clipped_grads(group):
+                state = self.state[p]
+                if not state:
+                    state['ms'] = torch.zeros_like(p)
+                    state['mom'] = torch.zeros_like(p)
+                ms, mom = state['ms'], state['mom']
+                ms.mul_(rho).add_((1 - rho) * g.square())
+                mom.mul_(group['momentum']).add_(
+                    group['lr'] * g / (ms + group['epsilon']).sqrt())
+                p.sub_(mom)
+        return None
+
+
+def _device_lr(optimizer: torch.optim.Optimizer) -> None:
+    """Each group's rate as a 0-dim tensor on its parameters' device, in
+    their dtype (JAX keeps it in its default float: float32, or float64
+    under x64)."""
+    for group in optimizer.param_groups:
+        p = group['params'][0]
+        group['lr'] = torch.tensor(float(group['lr']), dtype=p.dtype,
+                                   device=p.device)
+
+
+def _clipped_grads(group):
+    """(parameter, gradient clipped at the group's clipvalue) for each
+    parameter of ``group`` that has a gradient."""
+    clip = group['clipvalue']
+    for p in group['params']:
+        if p.grad is not None:
+            yield p, (p.grad if clip is None else p.grad.clamp(-clip, clip))
+
+
+OPTIMIZERS = {'adam': KerasAdam, 'adabelief': AdaBelief, 'sgd': KerasSGD,
+              'rmsprop': KerasRMSprop}
+
+
 def make_optimizer(config, params) -> torch.optim.Optimizer:
     """The reference's optimizer stack for ``config.optimizer`` (sj_train.py:
-    434-442, trainer.py:239-246); adam and adabelief are ported."""
-    if config.optimizer == 'adam':
-        return KerasAdam(params, lr=config.lr, clipvalue=config.clipvalue)
-    if config.optimizer == 'adabelief':
-        return AdaBelief(params, lr=config.lr, clipvalue=config.clipvalue)
-    raise NotImplementedError(
-        f'optimizer {config.optimizer!r} is not ported yet (ROADMAP A15)')
+    434-442, trainer.py:239-246); an unknown name raises ``ValueError``,
+    as in JAX."""
+    if config.optimizer not in OPTIMIZERS:
+        raise ValueError(f'unknown optimizer: {config.optimizer!r}')
+    return OPTIMIZERS[config.optimizer](params, lr=config.lr,
+                                         clipvalue=config.clipvalue)
 
 
 def custom_scheduler(d_model: float, warmup_steps: float = 4000,

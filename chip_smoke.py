@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of the
-                                     # vad v8, se, eff B0 v1, density B4
-                                     # and vad v9 steps
+                                     # vad v8 (float32 and bfloat16), se,
+                                     # eff B0 v1, density B4 and vad v9
+                                     # steps
     python3 chip_smoke.py --cudnn-ab # also the model step with cuDNN's
                                      # algorithm timing off and on, each in
                                      # a fresh process (off, on, on, off)
@@ -88,6 +89,13 @@ without the result line:
    has a gradient and no other, the card's new weights within 4 float32
    epsilons of (|weight| + lr) from AdaBelief in float64 on the card's own
    weights and gradients;
+4g. ``compute_dtype='bfloat16'`` on the shapes of 4-4f (vad v8 and v9,
+   eff B0 v5 and v7, se v9 pretrain, the density head): one set of
+   weights, input and labels on the card, on the CPU and in a float64
+   copy computing in float64; one training-mode forward, its loss and
+   every parameter's gradient; the card's distance from float64 (largest
+   over the peak) at most twice the CPU's, for the outputs with the loss
+   and for the gradients;
 5. the main path: ``get_model(Config(model_type='vad', v=8))`` at full width
    (base 48, td_dim 1024, 80 mels, 512 frames, batch 12),
    ``DevicePipeline`` and ``TrainLoop.fit`` for 5 training steps and 1
@@ -164,6 +172,17 @@ without the result line:
    (``eager_fused_step_ms``) timed in turns (graph, eager, eager, graph),
    20 steps each (10 for se), read back once, printed on the ``FUSED``
    line;
+5h. the fused step with ``compute_dtype='bfloat16'`` at full width, batch
+   12, float32 banks, for vad v8, eff B0 v1 and se v9 pretrain: the
+   graphed step against its plain version under cuDNN's deterministic
+   algorithms, its heuristics' choice (2 steps, bit for bit or within
+   two plain runs' gap), one launch a step; the float32 and the bfloat16 graphed steps of each
+   model with their first call's peak, and timed
+   in turns (float32, bfloat16, bfloat16, float32; ``fused_step_ms``
+   against ``bf16_step_ms``, 10 steps a turn, 5 for se); and the density
+   trainer's configuration in bfloat16 with ``grad_accum=2`` in banks
+   mode, 2 plain and 2 graphed steps, two launches a step, with its
+   peaks; printed on the ``BF16`` line with 4g's and 7f's results;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the se triple's: its sources read once, three windows written), the
@@ -236,7 +255,17 @@ without the result line:
    ``{name}.h5``, ``{name}_SWA.h5`` and a 3-row ``{name}.log`` of cos_sim
    and val_cos_sim; then the same name with ``--pretrain True`` for 2
    epochs (36 launches), which loads ``{name}.h5`` and cuts the learning
-   rate on plateaus instead of the warmup schedule; both timed.
+   rate on plateaus instead of the warmup schedule; both timed;
+7f. the bfloat16 CLI chain in that directory: ``cli.sj_train.main`` with
+   vad v8, ``--compute_dtype bfloat16 --bank_dtype int8`` for 3 epochs of
+   5 steps (63 int8 launches), its float32 trio, ``cli.eval.main --p
+   --compute_dtype bfloat16`` (6 finite ERs); one epoch each of ``--loss
+   focal --optimizer sgd`` and ``--loss MSE --mse_multiplier 8
+   --optimizer rmsprop`` (21 float32 launches each, a finite loss, moved
+   weights); ``cli.trainer.main --compute_dtype bfloat16`` at its
+   defaults with ``--n_chan 2 --bank_dtype int8`` for 2 epochs of 1 step
+   (34 int8 launches; one epoch raises ``NO_SWA_ERROR``, as in JAX), its
+   float32 ``{name}.h5`` and ``_SWA.h5``.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -247,6 +276,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import io
 import json
 import math
@@ -272,7 +302,7 @@ from challenge_tpu_torch.data.labels import (
 from challenge_tpu_torch.data.pipeline import FeatureFn
 from challenge_tpu_torch.data.specset import FLAT_DTYPES
 from challenge_tpu_torch.evaluate import events, infer
-from challenge_tpu_torch.models.layers import BatchNorm
+from challenge_tpu_torch.models.layers import BatchNorm, set_compute_dtype
 from challenge_tpu_torch.models.registry import ModelBundle, get_density_model
 from challenge_tpu_torch.models.senet import SECascade
 from challenge_tpu_torch.models.vad import VADModel
@@ -305,6 +335,7 @@ DENSITY_STEPS, DENSITY_VAL_STEPS = 5, 1    # phase 5f through kernel B1
 DENSITY_FUSED_STEPS = 2                    # then through kernel B4
 DENSITY_TIMED_STEPS = 10                   # its step time, right after
 DENSITY_PRETRAIN_EPOCHS = 2                # phase 7e's second run
+BF16_TIMED_STEPS = 10                      # phase 5h, each turn (se: 5)
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
@@ -1076,16 +1107,26 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = False
 
 
-def fused_triple(cfg, banks, spc: int, steps: int = 4):
+def fused_triple(cfg, banks, spc: int, steps: int = 4,
+                 search: bool = True):
     """Two plain runs and one graphed run of ``steps`` steps of ``cfg``
     from one seed: (records, the graphed run's launches, (bundle, state,
-    step, generators) of the graphed run)."""
+    step, generators) of the graphed run). ``search=False`` runs the
+    steps with ``cudnn.benchmark`` off, cuDNN's heuristic choice of
+    algorithm instead of its timed search."""
     recs = []
     for graphed in (False, False, True):
         bundle = get_model(cfg)
+        state = init_state(bundle, 0)
+        step = make_fused_train_step(bundle, cfg, steps_per_call=spc)
         cuda.reset_launch_counts()
-        state, step, metrics, gens = fused_run(bundle, banks, spc,
-                                               steps // spc, graphed)
+        # after the entry points, which turn it on
+        torch.backends.cudnn.benchmark = search
+        try:
+            state, step, metrics, gens = fused_run(
+                bundle, banks, spc, steps // spc, graphed, state, step)
+        finally:
+            torch.backends.cudnn.benchmark = True
         recs.append(fused_record(state, metrics))
     return recs, dict(cuda.LAUNCHES), (state, step, gens)
 
@@ -1228,6 +1269,94 @@ def fused_checks(banks, banks2048) -> dict:
     return res
 
 
+def bf16_fused_checks(banks, banks2048) -> dict:
+    """Phase 5h: the fused step (``parallel/train.py``) at full width,
+    batch 12, on float32 banks, with ``compute_dtype='bfloat16'``, for vad
+    v8, eff B0 v1 and se v9 pretrain. With cuDNN's deterministic algorithms, chosen by
+    its heuristics (its timed search of the bfloat16 engines under the
+    deterministic flag took 51 of 5h's 90 s on an NVIDIA H100 80GB HBM3
+    at 700.00 W): the graphed step against its plain
+    version from one seed (2 steps, one graphed call: the eager step, the
+    capture and a replay), bit for bit or within two plain runs' gap,
+    and the graphed call's launches, one a step. With the default
+    algorithms: the float32 and the bfloat16
+    graphed step of the model, each from its first call (the eager step
+    with cuDNN's algorithm search, the capture, the replays), with the
+    peak device memory of that first call above what was held before it
+    (``peak_gib``), then timed in turns (float32,
+    bfloat16, bfloat16, float32), ``BF16_TIMED_STEPS`` steps each (half
+    for se). Then the density trainer's configuration with ``grad_accum``
+    2 in bfloat16 on 2,048-frame banks, 2 plain and 2 graphed steps, two
+    magnitude launches a step."""
+    start = time.perf_counter()
+    res = {}
+    for name, cfg, spc in (
+            ('vad_v8', Config(model_type='vad', v=8), 2),
+            ('eff_b0_v1', Config(model_type='eff', model=0, v=1), 2),
+            ('se_v9', Config(model_type='se', v=9, pretrain=True), 2)):
+        t0 = time.perf_counter()
+        r = res[name] = {}
+        kernel = ('synth_se_f32' if name == 'se_v9'
+                  else KERNELS[torch.float32][0])
+        bcfg = cfg.replace(compute_dtype='bfloat16')
+        with cudnn_deterministic():
+            recs, launches, _ = fused_triple(bcfg, banks, spc, steps=2,
+                                             search=False)
+            check_launches(f'bf16 fused {name}', launches, {kernel: 2})
+            r['launches'] = launches
+            r['spread'] = fused_gap(recs[0], recs[1])
+            r['graph_gap'] = fused_gap(recs[0], recs[2])
+            hold(f'bf16 {name} graph vs plain', r['graph_gap'], r['spread'])
+            del recs
+        r['deterministic_s'] = time.perf_counter() - t0
+        runs = {}
+        for dt, c in (('float32', cfg), ('bfloat16', bcfg)):
+            t1 = time.perf_counter()
+            bundle = get_model(c)
+            state = init_state(bundle, 0)
+            step = make_fused_train_step(bundle, c, steps_per_call=spc)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _, _, metrics, gens = fused_run(bundle, banks, spc, 1, True,
+                                            state, step)
+            if not math.isfinite(float(metrics[0]['loss'])):
+                raise AssertionError(f'bf16 fused {name} {dt}: {metrics}')
+            # the first call's peak: the eager step with cuDNN's search,
+            # the capture, the replays
+            r[f'{dt}_peak_gib'] = (torch.cuda.max_memory_allocated()
+                                   - base) / 2**30
+            r[f'{dt}_first_call_s'] = time.perf_counter() - t1
+            runs[dt] = (state, step, gens)
+        n = BF16_TIMED_STEPS // (2 if name == 'se_v9' else 1)
+        r['fused_step_ms'], r['bf16_step_ms'] = [], []
+        for dt in ('float32', 'bfloat16', 'bfloat16', 'float32'):
+            state, step, gens = runs[dt]
+            r['bf16_step_ms' if dt == 'bfloat16' else 'fused_step_ms'].append(
+                wall_ms(lambda: step(state, banks, *gens), n // spc) / spc)
+        del runs, state, step
+        r['seconds'] = time.perf_counter() - t0
+        log(f'bf16 fused {name}: {json.dumps(r)}')
+    # the density trainer's configuration in bfloat16: B4 at 2,048 frames,
+    # grad_accum 2, banks mode
+    ns = density_args(['--grad_accum', '2', '--compute_dtype', 'bfloat16'])
+    cfg = trainer.to_config(ns)
+    bundle = get_density_model(cfg, seed=cfg.seed)
+    step = make_fused_train_step(bundle, cfg, trainer.make_loss_fn(ns),
+                                 variant='density', steps_per_call=2)
+    cuda.reset_launch_counts()
+    _, metrics, res['density_peak_gib'] = steady_peak(bundle, banks2048, step)
+    torch.cuda.synchronize()
+    res['density_launches'] = dict(cuda.LAUNCHES)
+    check_launches('bf16 density grad_accum 2', res['density_launches'],
+                   {KERNELS[torch.float32][0]: 8})
+    if not all(math.isfinite(float(v)) for v in metrics[0].values()):
+        raise AssertionError(f'bf16 density: {metrics}')
+    del bundle, step
+    res['bf16_5h_s'] = time.perf_counter() - start
+    log(f'phase 5h: {res["bf16_5h_s"]:.3f} s')
+    return res
+
+
 def density_args(extra=()):
     """The density trainer's flags at their defaults, with ``--n_chan 2``
     (at its default 1 it refuses to train, ROADMAP C9)."""
@@ -1237,6 +1366,109 @@ def density_args(extra=()):
 
 def density_config() -> Config:
     return trainer.to_config(density_args())
+
+
+def bf16_reference_check(dev) -> dict:
+    """Phase 4g: ``compute_dtype='bfloat16'`` on the card against the CPU
+    on the small inputs of phases 4-4f: vad v8 and v9 (80 mels, 64
+    frames, batch 4), eff B0 v5 and v7 (40 mels, 256 frames, batch 2,
+    fixed keep masks), se v9 pretrain (batch 2, 32 frames) and the density
+    head (B0, 2 gated layers, 40 x 256, batch 2, its loss with the kernel
+    penalty). One set of weights, input and labels goes to the card's
+    bfloat16 model, the CPU's and a float64 copy computing in float64:
+    one training-mode forward, the loss and the gradients of every
+    parameter. The card's distance from the float64 copy, the largest
+    over the peak, must be at most twice the CPU's, for the outputs with
+    the loss and for the gradients. The card takes cuDNN's heuristic
+    choice of algorithm here (``cudnn.benchmark`` off): with the timed
+    search, the card's first bfloat16 calls at these small shapes, which
+    no other phase runs, took 60 of the phase's 72 s on an NVIDIA H100
+    80GB HBM3 at 700.00 W."""
+    cpu = torch.device('cpu')
+    rng = np.random.default_rng(13)
+    ns = density_args()
+    cases = {
+        'vad_v8': (Config(model_type='vad', v=8, n_frame=64), 4),
+        'vad_v9': (Config(model_type='vad', v=9, n_frame=64), 4),
+        'eff_b0_v5': (Config(model_type='eff', v=5, n_mels=40,
+                             n_frame=256), 2),
+        'eff_b0_v7': (Config(model_type='eff', v=7, n_mels=40,
+                             n_frame=256), 2),
+        'se_v9': (Config(model_type='se', v=9, n_frame=32, pretrain=True),
+                  2),
+        'density': (trainer.to_config(ns).replace(
+            model='EfficientNetB0', n_layers=2, n_mels=40, n_frame=256),
+            2)}
+    density_loss_fn = trainer.make_loss_fn(ns)
+
+    def loss_of(name, y, o, m):
+        if name == 'se_v9':
+            return se_loss(y, o)[0]
+        if name != 'density':
+            return binary_crossentropy(y[0], o[0])
+        if getattr(density_loss_fn, 'needs_params', False):
+            return density_loss_fn(y[0], o[0], m)[0]
+        return density_loss_fn(y[0], o[0])[0]
+    gaps = {}
+    for seed, (name, (cfg, batch)) in enumerate(cases.items()):
+        t0 = time.perf_counter()
+        cfg = cfg.replace(compute_dtype='bfloat16')
+        bundle = (get_density_model if name == 'density' else get_model)(
+            cfg, device=cpu, seed=seed)
+        m_c = bundle.module
+        x = torch.from_numpy(rng.standard_normal(
+            (batch,) + bundle.input_shape, dtype=np.float32))
+        if bundle.needs_dropout_gen:
+            fix_keep_masks(m_c, x, torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            outs = m_c.train()(x, torch.Generator()) \
+                if bundle.needs_dropout_gen else m_c.train()(x)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if name == 'density':
+            y = (torch.from_numpy(rng.random(outs[0].shape, np.float32) * 4),)
+        else:
+            y = (torch.from_numpy((rng.random(outs[0].shape) < 0.5)
+                                  .astype(np.float32)),)
+            y += tuple(torch.from_numpy(rng.standard_normal(
+                o.shape[:-1] + (1,), dtype=np.float32)) for o in outs[1:])
+        f64 = copy.deepcopy(m_c).double()
+        set_compute_dtype(f64, None)
+        models = {'cpu': m_c, 'card': copy.deepcopy(m_c).to(dev), 'f64': f64}
+        res, secs = {}, {}
+        torch.backends.cudnn.benchmark = False
+        for key, m in models.items():
+            t1 = time.perf_counter()
+            where = dev if key == 'card' else cpu
+            dt = torch.float64 if key == 'f64' else torch.float32
+            xb = x.to(where, dt)
+            yb = tuple(t.to(where, dt) for t in y)
+            o = (m.train()(xb, torch.Generator(device=where))
+                 if bundle.needs_dropout_gen else m.train()(xb))
+            o = o if isinstance(o, tuple) else (o,)
+            loss = loss_of(name, yb, o, m)
+            grads = torch.autograd.grad(loss, list(m.parameters()),
+                                        allow_unused=True)
+            res[key] = (
+                torch.cat([t.detach().double().cpu().flatten()
+                           for t in (*o, loss)]),
+                torch.cat([(torch.zeros_like(p) if g is None else g)
+                           .double().cpu().flatten()
+                           for p, g in zip(m.parameters(), grads)]))
+            secs[key] = time.perf_counter() - t1
+        torch.backends.cudnn.benchmark = True        # as the entry points
+        g = gaps[name] = {'seconds': secs,
+                          'total_s': time.perf_counter() - t0}
+        for i, what in enumerate(('forward', 'gradients')):
+            ref = res['f64'][i]
+            for key in ('cpu', 'card'):
+                g[f'{what}_{key}'] = float((res[key][i] - ref).abs().max()
+                                           / ref.abs().max())
+            if g[f'{what}_card'] > 2 * g[f'{what}_cpu']:
+                raise AssertionError(f'bf16 {name} {what} on the card '
+                                     f'beyond twice the CPU\'s: {g}')
+    log('card vs CPU in bfloat16, small input: gaps to float64 over the '
+        f'peak {json.dumps(gaps)}')
+    return {'bf16_gaps': gaps}
 
 
 def density_reference_check(dev) -> dict:
@@ -1470,6 +1702,81 @@ def density_cli_chain(d: str) -> dict:
     res['density_cli_batches'] = CLI_EPOCHS * (SE_CLI_STEPS + CLI_VAL_STEPS)
     res['density_7e_s'] = time.perf_counter() - start
     log(f'phase 7e: {res["density_7e_s"]:.3f} s')
+    return res
+
+
+def bf16_cli_chain(d: str) -> dict:
+    """Phase 7f, in the CLI chain's directory ``d``: ``cli.sj_train`` with
+    vad v8, ``--compute_dtype bfloat16 --bank_dtype int8`` for 3 epochs of
+    5 steps, the int8 magnitude kernel once a batch (63 times), its trio,
+    then ``cli.eval --p --compute_dtype bfloat16``, 6 finite ERs; one
+    epoch each of ``--loss focal --optimizer sgd`` and ``--loss MSE
+    --mse_multiplier 8 --optimizer rmsprop`` on float32 banks (21
+    float32 magnitude launches each), each with a finite loss and moved
+    weights; and ``cli.trainer --compute_dtype bfloat16`` at its defaults
+    with ``--n_chan 2 --bank_dtype int8`` for 2 epochs of 1 step (one
+    epoch folds no SWA and raises ``NO_SWA_ERROR``, as in JAX), 34 int8
+    launches, ``{name}.h5`` and ``_SWA.h5``. Every checkpoint is float32."""
+    start = time.perf_counter()
+    res = {}
+    base = ['--model_type', 'vad', '--v', '8', '--n_chan', '2',
+            '--datapath', d]
+    batches = CLI_EPOCHS * (CLI_STEPS + CLI_VAL_STEPS)
+    run, res['bf16_cli_launches'], res['bf16_cli_s'] = run_cli(
+        base + ['--name', 'bf16c', '--compute_dtype', 'bfloat16',
+                '--bank_dtype', 'int8', '--epochs', str(CLI_EPOCHS),
+                '--steps_per_epoch', str(CLI_STEPS)], 'synth_mag_int8',
+        batches)
+    check_trio(run)
+    for suffix in ('.h5', '_SWA.h5', '_sample.h5'):
+        if {t.dtype for t in load_weights(run + suffix).values()} != \
+                {torch.float32}:
+            raise AssertionError(f'{run}{suffix} is not float32')
+    res['bf16_cli_batches'] = batches
+    res['bf16_ers'] = eval_cli.main(['--name', run, '--p',
+                                     '--compute_dtype', 'bfloat16'])
+    torch.cuda.synchronize()
+    if len(res['bf16_ers']) != 6 or not all(map(math.isfinite,
+                                                res['bf16_ers'])):
+        raise AssertionError(f'bf16 eval CLI ERs: {res["bf16_ers"]}')
+    init = get_model(Config(model_type='vad', v=8)).module.state_dict()
+    res['loss_optim'] = {}
+    for name, flags in (
+            ('focal_sgd', ['--loss', 'focal', '--optimizer', 'sgd']),
+            ('mse_rmsprop', ['--loss', 'MSE', '--mse_multiplier', '8',
+                             '--optimizer', 'rmsprop'])):
+        batches = CLI_STEPS + CLI_VAL_STEPS
+        run, counts, secs = run_cli(
+            base + ['--name', name, '--epochs', '1', '--steps_per_epoch',
+                    str(CLI_STEPS)] + flags, KERNELS[torch.float32][0],
+            batches)
+        with open(run + '.csv') as f:
+            row = list(csv.DictReader(f))[-1]
+        w = load_weights(run + '.h5')
+        moved = [k for k in init if 'running' not in k
+                 and not torch.equal(init[k], w[k].to(init[k].device))]
+        r = res['loss_optim'][name] = dict(
+            loss=float(row['loss']), val_loss=float(row['val_loss']),
+            moved_tensors=len(moved), launches=counts, seconds=secs)
+        if not math.isfinite(r['loss']) or not moved:
+            raise AssertionError(f'{name}: {r}')
+    files = Config()
+    argv = ['--name', 'dens16', '--n_chan', '2', '--compute_dtype',
+            'bfloat16', '--bank_dtype', 'int8', '--epochs', '2',
+            '--steps_per_epoch', '1', '--datapath', d]
+    for flag in ('background_sounds', 'voices', 'labels', 'noises',
+                 'test_background_sounds', 'test_voices', 'test_labels'):
+        argv += [f'--{flag}', getattr(files, flag)]
+    batches = 2 * (1 + CLI_VAL_STEPS)
+    run, res['bf16_density_launches'], res['bf16_density_s'] = run_cli(
+        argv, 'synth_mag_int8', batches, main=trainer.main)
+    res['bf16_density_batches'] = batches
+    for suffix in ('.h5', '_SWA.h5'):
+        if {t.dtype for t in load_weights(run + suffix).values()} != \
+                {torch.float32}:
+            raise AssertionError(f'{run}{suffix} is not float32')
+    res['bf16_7f_s'] = time.perf_counter() - start
+    log(f'phase 7f: {res["bf16_7f_s"]:.3f} s')
     return res
 
 
@@ -1835,8 +2142,8 @@ def se_cli_chain(d: str) -> dict:
 
 
 def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
-    """Phases 7, 8, 7b, 7c and 7d, in a temporary directory that is
-    removed after."""
+    """Phases 7, 8 and 7b-7f, in a temporary directory that is removed
+    after."""
     res = {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as d:
@@ -1877,6 +2184,7 @@ def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
             res.update(chan_cli_chain(d, chan4_model))
             res.update(eff_cli_chain(d))
             res.update(density_cli_chain(d))
+            res.update(bf16_cli_chain(d))
         finally:
             os.chdir(cwd)
     return res
@@ -1967,11 +2275,21 @@ def card_vs_cpu_eval(dev, run: str, answers: dict) -> dict:
 
     gap = dict.fromkeys(('spec', 'cpu_vs_f64', 'card_vs_f64', 'card_vs_cpu',
                          'end_to_end'), 0.0)
+    # not held, printed: the card's scores are its own log-mel windows'
+    # (the float64 and the CPU's scores share the CPU's), so apart, the
+    # largest |card - CPU| of those windows and the model alone on the
+    # card from the CPU's windows against float64 (ROADMAP C13)
+    parts = {'windows_abs': 0.0, 'card_model_vs_f64': 0.0,
+             'cpu_model_vs_f64': 0.0}
     specs = []
     for path in paths:
         spec = {'cpu': load_wav(path, device='cpu'),
                 'card': load_wav(path, device=dev).cpu()}
         specs.append(spec)
+        windows = {}
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args, k=k: windows.setdefault(k, args[0]))
+            for k, m in (('cpu', cpu), ('card', card))]
         scores = {
             'f64': infer.spec_to_scores(cfg, ref, spec['cpu']),
             'cpu': infer.spec_to_scores(cfg, cpu, spec['cpu']),
@@ -1979,6 +2297,19 @@ def card_vs_cpu_eval(dev, run: str, answers: dict) -> dict:
                                          spec['cpu'].to(dev)).cpu(),
             'card_e2e': infer.spec_to_scores(cfg, card,
                                              spec['card'].to(dev)).cpu()}
+        for h in hooks:
+            h.remove()
+        with torch.no_grad():
+            w = windows['cpu']
+            out = {'f64': ref(w.double()), 'cpu': cpu(w),
+                   'card': card(w.to(dev)).cpu()}
+        parts['windows_abs'] = max(parts['windows_abs'], float(
+            (windows['card'].cpu() - w).abs().max()))
+        for k in ('cpu', 'card'):
+            parts[f'{k}_model_vs_f64'] = max(
+                parts[f'{k}_model_vs_f64'],
+                float((out[k].double() - out['f64']).abs().max()
+                      / out['f64'].abs().max()))
         peak = float(scores['f64'].abs().max())
         for key, a, b in (
                 ('spec', spec['card'], spec['cpu']),
@@ -1991,7 +2322,7 @@ def card_vs_cpu_eval(dev, run: str, answers: dict) -> dict:
                            float((a - b).abs().max()) / ref_peak)
     log(f'card vs CPU eval, 2 clips of {CUT_S} s: logit gaps at the '
         f'threshold {widths.tolist()}, max abs gaps over the peak '
-        f'{json.dumps(gap)}')
+        f'{json.dumps(gap)}; apart, {json.dumps(parts)}')
     if gap['spec'] > SCORE_TOL:
         raise AssertionError('card vs CPU spectrogram beyond the tolerance')
     if gap['card_vs_f64'] > max(SCORE_TOL, 10 * gap['cpu_vs_f64']):
@@ -2031,7 +2362,7 @@ def card_vs_cpu_eval(dev, run: str, answers: dict) -> dict:
         raise AssertionError(f'card vs CPU ERs: {ers}')
     for path in paths:              # the dev set is scored again in 7b
         os.remove(path)
-    return dict(cut_ers=ers['card'], cut_max_rel_gap=gap,
+    return dict(cut_ers=ers['card'], cut_max_rel_gap=gap, cut_parts=parts,
                 cut_positive_share=positive, cut_nearest_to_half=nearest,
                 borderline_frames=borderline)
 
@@ -2149,6 +2480,10 @@ def main(argv) -> int:
     density_ref = density_reference_check(dev)
     density_ref['density_4f_s'] = time.perf_counter() - t0
     log(f'phase 4f: {density_ref["density_4f_s"]:.3f} s')
+    t0 = time.perf_counter()
+    bf16_ref = bf16_reference_check(dev)
+    bf16_ref['bf16_4g_s'] = time.perf_counter() - t0
+    log(f'phase 4g: {bf16_ref["bf16_4g_s"]:.3f} s')
 
     # 5. the main path
     f32_kernel = KERNELS[torch.float32][0]
@@ -2184,6 +2519,8 @@ def main(argv) -> int:
     density = density_main_path(banks2048['float32'])
     # 5g. this slice's main path: the fused step, graphed and plain
     fused_res = fused_checks(banks['float32'], banks2048['float32'])
+    # 5h. this slice's main path: the fused step with bfloat16 models
+    bf16_res = bf16_fused_checks(banks['float32'], banks2048['float32'])
     del banks2048
 
     # 6. times: each kernel on the main path's draws (the flat-complex
@@ -2269,6 +2606,12 @@ def main(argv) -> int:
     model_ms = wall_ms(lambda: loop.train_step(loop.state, batch), 20)
     if '--profile' in argv:
         profile_steps(loop, train_it, 10)
+        # the same model computing in bfloat16, eager, on the same batches
+        bf16_loop = TrainLoop(get_model(cfg.replace(
+            compute_dtype='bfloat16')))
+        bf16_loop.run_epoch(train_it, 3, training=True)
+        profile_steps(bf16_loop, train_it, 10, 'BF16_PROFILE')
+        del bf16_loop
     if '--cudnn-ab' in argv:
         log('CUDNN model_step_ms, fresh process each: '
             + json.dumps(cudnn_ab()))
@@ -2385,9 +2728,17 @@ def main(argv) -> int:
                              'cli_int8': cli['density_int8_launches']},
         'card': smi}))
     log('FUSED ' + json.dumps({**fused_res, 'card': smi}))
+    log('BF16 ' + json.dumps({
+        **bf16_res, **bf16_ref,
+        **{k: cli[k] for k in ('bf16_cli_s', 'bf16_ers', 'loss_optim',
+                               'bf16_density_s', 'bf16_7f_s')},
+        'cli_launches': {'sj_train': cli['bf16_cli_launches'],
+                         'trainer': cli['bf16_density_launches']},
+        'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
                              if not k.endswith('launches')
-                             and not k.startswith('density')}))
+                             and not k.startswith(('density', 'bf16_',
+                                                   'loss_optim'))}))
     log(smi)
     runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
             'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
@@ -2403,6 +2754,12 @@ def main(argv) -> int:
                 ('synth_mel_f32', 'v9_float32', TRAIN_STEPS + VAL_STEPS),
                 ('synth_mel_bf16', 'v9_bfloat16', 2),
                 ('synth_mel_int8', 'v9_int8', 2))}}
+    # the launches of phases 5h and 7f, the bfloat16 models' runs
+    bf16_launches = [bf16_res[k]['launches'] for k in
+                     ('vad_v8', 'eff_b0_v1', 'se_v9')] + [
+        bf16_res['density_launches'], cli['bf16_cli_launches'],
+        cli['bf16_density_launches']] + [
+        r['launches'] for r in cli['loss_optim'].values()]
     log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': 'challenge_tpu_torch/csrc/' + (
@@ -2411,6 +2768,7 @@ def main(argv) -> int:
         'launches': runs[name][0].get(name, 0),
         'launches_per_step': runs[name][0].get(name, 0) / runs[name][1],
         'density_launches': density_launches.get(name, {}).get(name, 0),
+        'bf16_launches': sum(c.get(name, 0) for c in bf16_launches),
         'max_abs_err': max(errs[name].values()),
         **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {

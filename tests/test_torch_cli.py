@@ -419,8 +419,7 @@ def test_trainer_refuses_n_chan_but_2(n_chan):
 
 @pytest.mark.parametrize('flag,item', [
     (['--n_devices', '2'], 'A14'), (['--bank_shard', 'True'], 'A14'),
-    (['--stream_chunks', '2'], 'A14'),
-    (['--compute_dtype', 'bfloat16'], 'A14'), (['--ckpt_dir', 'ck'], 'A15'),
+    (['--stream_chunks', '2'], 'A14'), (['--ckpt_dir', 'ck'], 'A15'),
     (['--resume', 'True'], 'A15'), (['--keras_ckpt', 'True'], 'A15')])
 def test_trainer_refuses_unported_flags(flag, item):
     """Each unported flag raises naming its ROADMAP item, before any data

@@ -161,13 +161,6 @@ def test_adabelief_matches_jax(amsgrad):
         assert (s['vhat'] >= s['v']).all() and (s['vhat'] > s['v']).any()
 
 
-def test_other_optimizers_still_name_their_item():
-    for name in ('sgd', 'rmsprop'):
-        with pytest.raises(NotImplementedError, match='ROADMAP A15'):
-            make_optimizer(Config(optimizer=name),
-                           [torch.nn.Parameter(torch.zeros(2))])
-
-
 # ------------------------------------------------------- the regularizer
 def _family(name):
     """(flax variables, the port's module with them bridged)."""
@@ -449,9 +442,6 @@ def test_density_model_ids_heads_and_refusals():
         effnet.EffNetSED(v=2, head='sed')
     with pytest.raises(ValueError, match='unknown head'):
         effnet.EffNetSED(head='se')
-    with pytest.raises(NotImplementedError, match='ROADMAP A14'):
-        get_density_model(Config(model='EfficientNetB0',
-                                 compute_dtype='bfloat16'), device='cpu')
 
 
 def test_b4_density_parameter_count_equals_jax():

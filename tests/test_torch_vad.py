@@ -99,8 +99,8 @@ def test_train_forward_and_bn_stats_match_jax(models):
 def test_unported_versions_raise():
     """Every vad version is built (v6, v7 and v9: test_torch_vad_versions.py)
     and so are the EfficientNet-SED family (test_torch_effnet.py) and the
-    density head (test_torch_density.py); what is still unported raises
-    and names its ROADMAP item: bfloat16 compute (A14)."""
+    density head (test_torch_density.py); bfloat16 compute builds too
+    (test_torch_bf16.py)."""
     from challenge_tpu_torch.config import Config
     from challenge_tpu_torch.models.effnet import EffNetSED
     from challenge_tpu_torch.models.registry import get_model
@@ -111,9 +111,6 @@ def test_unported_versions_raise():
     assert isinstance(bundle.module, EffNetSED) and bundle.needs_dropout_gen
     density = EffNetSED(head='density', n_mels=32, n_frame=64)
     assert density.density and len(density.denses) == 1
-    with pytest.raises(NotImplementedError, match='ROADMAP A14'):
-        get_model(Config(model_type='vad', compute_dtype='bfloat16'),
-                  device='cpu')
 
 
 def test_odd_mel_pooling_is_same_padded():
