@@ -14,6 +14,16 @@ mode, JAX's fused step (``parallel.train``): one CUDA graph a step on the
 card, eager with ``--device cpu``; ``--steps_per_call``, ``--grad_accum``
 and ``--remat`` shape that step as they shape JAX's.
 
+``--n_devices`` and ``--bank_shard`` follow JAX's device policy
+(``parallel.mesh.devices_for_config``): on one device the run trains
+single-device; a data-parallel mesh raises (ROADMAP A14).
+``--stream_chunks N`` (N >= 2) rotates the training spec set through the
+card in N chunks, ``--chunk_steps`` dispatches each
+(``data.streaming``). ``--ckpt_dir`` saves the full train state every
+``--ckpt_every_epochs`` epochs and at the end; ``--resume True`` restores
+the latest one and continues from its epoch. ``--keras_ckpt`` is not
+ported (ROADMAP A15).
+
 The se v9 family trains in two runs. ``--pretrain True`` trains the U-Net
 and names its run ``..._weight``. Without the flag (the reference's
 ``type=bool`` flag makes ``--pretrain False`` True) the run fine-tunes the
@@ -30,13 +40,16 @@ import numpy as np
 
 from challenge_tpu_torch.config import Config, config_from_args
 from challenge_tpu_torch.data.pipeline import build_banks
+from challenge_tpu_torch.data.streaming import build_streaming_banks
 from challenge_tpu_torch.device import resolve_device
 from challenge_tpu_torch.models.registry import get_model
+from challenge_tpu_torch.parallel.mesh import devices_for_config
 from challenge_tpu_torch.train import (
     NO_SWA_ERROR, SWA, CSVLogger, EarlyStopping, EvalCallback,
     LearningRateScheduler, ModelCheckpoint, TensorBoard, TerminateOnNaN,
-    TrainLoop, custom_scheduler, save_weights)
-from challenge_tpu_torch.train.checkpoint import load_weights
+    TrainLoop, TrainStateCheckpoint, custom_scheduler, save_weights)
+from challenge_tpu_torch.train.checkpoint import (
+    load_weights, restore_train_state)
 from challenge_tpu_torch.utils.io import load_data
 
 DEVICE_FLAG = {'--device': dict(type=str, default=None,
@@ -46,12 +59,9 @@ DEVICE_FLAG = {'--device': dict(type=str, default=None,
 def make_banks(config: Config, training: bool = True, n_classes: int = 3,
                device=None):
     """Load the pickled spec sets and build device banks
-    (reference: sj_train.py:74-90)."""
-    for flag, on in (('stream_chunks', training and config.stream_chunks >= 2),
-                     ('bank_shard', bool(config.bank_shard))):
-        if on:
-            raise NotImplementedError(
-                f'--{flag} is not ported yet (ROADMAP A14)')
+    (reference: sj_train.py:74-90), or for training with ``stream_chunks``
+    >= 2 a rotation of host chunks (``data.streaming``), as JAX's
+    ``make_banks`` does."""
     datapath = config.datapath if os.path.exists(config.datapath) else ''
     prefix = '' if training else 'test_'
     backgrounds = load_data(os.path.join(
@@ -61,19 +71,40 @@ def make_banks(config: Config, training: bool = True, n_classes: int = 3,
     labels = load_data(os.path.join(datapath, getattr(config,
                                                       prefix + 'labels')))
     noises = load_data(os.path.join(datapath, config.noises))
+    if training and config.stream_chunks >= 2:
+        return build_streaming_banks(
+            backgrounds, voices, np.asarray(labels), noises,
+            n_chunks=config.stream_chunks, n_classes=n_classes, one_hot=True,
+            n_frame=config.n_frame, flat_dtype=config.bank_dtype,
+            seed=config.seed, chunk_steps=config.chunk_steps, device=device)
     return build_banks(backgrounds, voices, np.asarray(labels), noises,
                        n_classes=n_classes, one_hot=True,
                        n_frame=config.n_frame, flat_dtype=config.bank_dtype,
                        device=device)
 
 
-def refuse_checkpoint_flags(config: Config) -> None:
-    """The checkpoint flags of ROADMAP A15: ``--ckpt_dir``, ``--resume``
-    and ``--keras_ckpt``."""
-    for flag in ('ckpt_dir', 'resume', 'keras_ckpt'):
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f'--{flag} is not ported yet (ROADMAP A15)')
+def refuse_keras_ckpt(config: Config) -> None:
+    """Keras HDF5 checkpoints wait for ROADMAP A15."""
+    if config.keras_ckpt:
+        raise NotImplementedError(
+            '--keras_ckpt is not ported yet (ROADMAP A15)')
+
+
+def resume(config: Config, loop: TrainLoop) -> int:
+    """With ``--ckpt_dir`` and ``--resume``, restore the latest full train
+    state into ``loop`` and return the epoch it reached, as JAX's CLIs do
+    (cli/sj_train.py:117-132); else 0."""
+    if not (config.ckpt_dir and config.resume):
+        return 0
+    try:
+        restore_train_state(config.ckpt_dir, loop.state)
+    except FileNotFoundError:
+        print(f'no checkpoint under {config.ckpt_dir!r}; starting fresh')
+        return 0
+    step = loop.state.step
+    initial_epoch = step // loop.steps_per_fused_epoch(config.steps_per_epoch)
+    print(f'resumed from step {step} (epoch {initial_epoch})')
+    return initial_epoch
 
 
 def select_monitors(config: Config):
@@ -88,12 +119,13 @@ def select_monitors(config: Config):
 def main(argv=None) -> str:
     """Train; returns the run name."""
     config = config_from_args(argv, extra=DEVICE_FLAG)
-    refuse_checkpoint_flags(config)
+    refuse_keras_ckpt(config)
     config.loss = config.loss.upper()
     if config.loss != 'MSE':
         config.mse_multiplier = 1
     print(config)
     device = resolve_device(config.extra_args['device'])
+    devices_for_config(config, device)
 
     name = config.run_name()
     name = name if name.endswith('.h5') else name + '.h5'
@@ -109,6 +141,7 @@ def main(argv=None) -> str:
     if config.model_type == 'se' and config.v == 9 and not config.pretrain:
         loop.set_weights(load_weights(name, device))
         print('loaded pretrained model')
+    initial_epoch = resume(config, loop)
 
     earlystop_monitor, checkpoint_monitor = select_monitors(config)
     callbacks = [
@@ -124,10 +157,14 @@ def main(argv=None) -> str:
         LearningRateScheduler(
             custom_scheduler(4096, config.epochs / 12, config.lr_div)),
     ]
+    if config.ckpt_dir:
+        callbacks.append(TrainStateCheckpoint(
+            config.ckpt_dir, every_epochs=config.ckpt_every_epochs))
     try:
         loop.fit(epochs=config.epochs,
                  steps_per_epoch=config.steps_per_epoch,
-                 validation_steps=16, callbacks=callbacks)
+                 validation_steps=16, callbacks=callbacks,
+                 initial_epoch=initial_epoch)
         print('best model:', name.replace('.h5', '_SWA.h5'))
         save_weights(name.replace('.h5', '_SWA.h5'),
                      loop.state.module.state_dict())

@@ -17,11 +17,17 @@ plateaus of the training loss. The SWA average is written to
 ``{name}_SWA.h5``; a run too short to fold SWA raises ``NO_SWA_ERROR``,
 as JAX's does.
 
-With ``--grad_accum`` > 1 the run trains in banks mode, the fused step
-over the density batches (``TrainLoop(variant='density')``), as JAX's
-does (cli/trainer.py:179-192); otherwise it trains from the reference's
-batch iterators, where ``--steps_per_call`` does not apply. ``--remat``
-rematerialises the forward in either mode.
+With ``--grad_accum`` > 1 or ``--stream_chunks`` >= 2 the run trains in
+banks mode, the fused step over the density batches
+(``TrainLoop(variant='density')``), on resident banks or on a rotation of
+host chunks, as JAX's does (cli/trainer.py:175-192); otherwise it trains
+from the reference's batch iterators, where ``--steps_per_call`` does not
+apply. ``--remat`` rematerialises the forward in either mode.
+``--n_devices`` and ``--bank_shard`` follow JAX's device policy, and
+``--ckpt_dir``, ``--ckpt_every_epochs`` and ``--resume`` save and restore
+the full train state, as for ``cli.sj_train``. A resumed iterator-mode run
+draws its batches from a pipeline started anew at the seed, as JAX's
+``DevicePipeline`` restarts its key chain (ROADMAP C15).
 
 The flags are the JAX CLI's, plus ``--device``: the run goes to ``cuda``
 unless given ``--device cpu``. ``--datapath`` defaults to the working
@@ -37,14 +43,16 @@ from __future__ import annotations
 import argparse
 
 from challenge_tpu_torch.cli.sj_train import (
-    make_banks, refuse_checkpoint_flags)
+    make_banks, refuse_keras_ckpt, resume)
 from challenge_tpu_torch.config import Config, str2bool
 from challenge_tpu_torch.data.pipeline import DevicePipeline
 from challenge_tpu_torch.device import resolve_device
 from challenge_tpu_torch.models.registry import get_density_model
+from challenge_tpu_torch.parallel.mesh import devices_for_config
 from challenge_tpu_torch.train import (
     SWA, CSVLogger, LearningRateScheduler, ModelCheckpoint, ReduceLROnPlateau,
-    TerminateOnNaN, TrainLoop, custom_scheduler, load_weights, save_weights)
+    TerminateOnNaN, TrainLoop, TrainStateCheckpoint, custom_scheduler,
+    load_weights, save_weights)
 from challenge_tpu_torch.train.losses import density_loss
 from challenge_tpu_torch.train.regularizers import (
     apply_kernel_regularizer, l1_l2)
@@ -135,22 +143,16 @@ def to_config(ns) -> Config:
 
 
 def refuse_unported(config: Config) -> None:
-    """n_chan != 2 (ROADMAP C9), ``--n_devices`` (ROADMAP A14) and the
-    checkpoint flags (ROADMAP A15). The banks refuse ``--stream_chunks``
-    and ``--bank_shard``, all before any data is read. ``--compute_dtype
-    bfloat16`` trains: the model computes in it, and its checkpoints stay
-    float32."""
+    """n_chan != 2 (ROADMAP C9) and ``--keras_ckpt`` (ROADMAP A15), before
+    any data is read. ``--compute_dtype bfloat16`` trains: the model
+    computes in it, and its checkpoints stay float32."""
     if config.n_chan != 2:
         raise ValueError(
             f'n_chan={config.n_chan}: the density features keep 2 channels '
             'at every n_chan (no channel map), so a model built for '
             f'{config.n_chan} cannot train on them; the JAX trainer fails '
             'its first step the same way (ROADMAP C9). Pass --n_chan 2')
-    if config.n_devices > 1:
-        raise NotImplementedError(
-            f'--n_devices {config.n_devices} is not ported yet '
-            '(ROADMAP A14)')
-    refuse_checkpoint_flags(config)
+    refuse_keras_ckpt(config)
 
 
 def make_loss_fn(ns):
@@ -185,12 +187,13 @@ def main(argv=None) -> str:
     refuse_unported(config)
     print(config)
     device = resolve_device(ns.device)
+    devices_for_config(config, device)
     name = ns.name if ns.name.endswith('.h5') else ns.name + '.h5'
 
     bundle = get_density_model(config, device=device, seed=config.seed)
-    # gradient accumulation rides the fused step, so it trains in banks
-    # mode (cli/trainer.py:179-192)
-    fused = config.grad_accum > 1
+    # the chunk rotation and gradient accumulation ride the fused step, so
+    # they train in banks mode (cli/trainer.py:175-192)
+    fused = config.stream_chunks >= 2 or config.grad_accum > 1
     if fused:
         loop = TrainLoop(
             bundle, seed=config.seed, loss_fn=make_loss_fn(ns),
@@ -205,6 +208,7 @@ def main(argv=None) -> str:
     if ns.pretrain:
         loop.set_weights(load_weights(name, device))
         print('loaded pretrained model')
+    initial_epoch = resume(config, loop)
 
     train_set = test_set = None        # banks mode draws from the banks
     if not fused:
@@ -222,10 +226,13 @@ def main(argv=None) -> str:
     else:
         callbacks.append(ReduceLROnPlateau(monitor='loss', factor=0.9,
                                            patience=5))
+    if config.ckpt_dir:
+        callbacks.append(TrainStateCheckpoint(
+            config.ckpt_dir, every_epochs=config.ckpt_every_epochs))
     loop.fit(train_set, epochs=config.epochs,
              steps_per_epoch=config.steps_per_epoch,
              validation_iter=test_set, validation_steps=16,
-             callbacks=callbacks)
+             callbacks=callbacks, initial_epoch=initial_epoch)
     save_weights(name.replace('.h5', '_SWA.h5'),
                  loop.state.module.state_dict())
     return name[:-len('.h5')]

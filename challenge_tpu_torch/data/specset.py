@@ -105,9 +105,9 @@ def build_bank(specs: Sequence[np.ndarray], t_max: Optional[int] = None,
     pos_mask = np.zeros((len(specs), t_pad), np.float32)
     for i, s in enumerate(specs):
         t = int(lens[i])
-        frames = s[:, :t].transpose(1, 2, 0)              # [t, chan, freq]
-        flat[i, :t] = frames
-        pos_mask[i, :t] = frames.max(axis=(1, 2)) > 0
+        flat[i, :t] = s[:, :t].transpose(1, 2, 0)         # [t, chan, freq]
+        # reduced from the contiguous copy: the transposed view is slow
+        pos_mask[i, :t] = flat[i, :t].max(axis=(1, 2)) > 0
         if wrap and t < t_flat:
             tt = max(t, 1)
             flat[i, t:] = flat[i, np.arange(t, t_flat) % tt]

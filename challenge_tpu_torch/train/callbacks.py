@@ -6,8 +6,9 @@ Callbacks receive the :class:`~challenge_tpu_torch.train.loop.TrainLoop`
 (which owns the TrainState) and a ``logs`` dict of floats per epoch. Order
 matters and mirrors the reference: SWA's ``on_train_end`` overwrites the
 live weights with the SWA average after EarlyStopping may have restored
-the best weights (reference: sj_train.py:489-500 callback order). The
-full train-state checkpoint waits for ROADMAP A15.
+the best weights (reference: sj_train.py:489-500 callback order).
+:class:`TrainStateCheckpoint`, which the CLIs add after the others when
+given ``--ckpt_dir``, saves the full train state for ``--resume``.
 """
 
 from __future__ import annotations
@@ -237,6 +238,26 @@ class EvalCallback(Callback):
             self.score = score
             checkpoint.save_weights(
                 os.path.splitext(self.name)[0] + '_sample.h5', weights)
+
+
+class TrainStateCheckpoint(Callback):
+    """The full train state (weights, BN statistics, optimizer state, SWA
+    average, step) under ``ckpt_dir`` every ``every_epochs`` epochs and at
+    train end (counterpart: ``callbacks.py:274-289``), for
+    ``checkpoint.restore_train_state``. The train-end save of a step
+    already saved is skipped, as Orbax skips it; otherwise, after SWA's
+    ``on_train_end``, it holds the swapped-in average."""
+
+    def __init__(self, ckpt_dir: str, every_epochs: int = 10):
+        self.ckpt_dir = ckpt_dir
+        self.every = max(every_epochs, 1)
+
+    def on_epoch_end(self, epoch, logs):
+        if (epoch + 1) % self.every == 0:
+            checkpoint.save_train_state(self.ckpt_dir, self.loop.state)
+
+    def on_train_end(self, logs=None):
+        checkpoint.save_train_state(self.ckpt_dir, self.loop.state)
 
 
 class TensorBoard(Callback):

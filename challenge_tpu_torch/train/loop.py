@@ -17,7 +17,11 @@ the host does not wait on the card between steps. Two sources of batches:
   steps_per_call)`` calls (:meth:`TrainLoop.steps_per_fused_epoch`), and
   its logs are the mean over calls of each call's mean. Each phase draws
   from one generator, reseeded by (seed, epoch, phase) at each epoch, so
-  a given epoch always draws the same batches.
+  a given epoch always draws the same batches. ``banks`` may be a
+  :class:`~challenge_tpu_torch.data.streaming.StreamingBanks` rotation:
+  each training call takes its ``next_banks()``, and ``fit`` first puts
+  its cursor where the state's step has it (loop.py:199-207), so a
+  restored run trains on the chunks the uninterrupted one would.
 
 A model with stochastic depth (the eff family) trains each epoch with its
 generator reseeded by (seed, epoch) on a stream of its own
@@ -28,12 +32,13 @@ after a restart, as JAX's per-epoch keys do (loop.py:135-142).
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from challenge_tpu_torch.data.mixture import Banks
+from challenge_tpu_torch.data.streaming import StreamingBanks
 from challenge_tpu_torch.models.registry import ModelBundle
 from challenge_tpu_torch.parallel.train import (
     make_fused_eval_step, make_fused_train_step)
@@ -50,13 +55,14 @@ class TrainLoop:
     (``'sj'`` or the density trainer's ``'density'``)."""
 
     def __init__(self, bundle: ModelBundle, seed: int = 0,
-                 banks: Optional[Banks] = None,
+                 banks: Optional[Union[Banks, StreamingBanks]] = None,
                  val_banks: Optional[Banks] = None, loss_fn=None,
                  variant: str = 'sj'):
         self.bundle = bundle
         self.config = bundle.config
         self.seed = seed
         self.fused = banks is not None
+        self.streaming = isinstance(banks, StreamingBanks)
         if self.fused:
             self.train_step = make_fused_train_step(
                 bundle, self.config, loss_fn, variant)
@@ -134,6 +140,16 @@ class TrainLoop:
                 logs[k] = float(v) / count
         return logs
 
+    def _train_banks(self) -> Banks:
+        return self.banks.next_banks() if self.streaming else self.banks
+
+    def _val_banks(self) -> Banks:
+        """``val_banks``, else the training banks (a rotation's current
+        chunk), as JAX's ``run_epoch`` picks them."""
+        if self.val_banks is not None:
+            return self.val_banks
+        return self.banks.peek() if self.streaming else self.banks
+
     def run_epoch(self, data_iter, steps: int, training: bool,
                   epoch: int = 0):
         sums, count = {}, 0
@@ -144,9 +160,10 @@ class TrainLoop:
             gen = self.phase_gen(epoch, training)
             n_calls = (max(-(-steps // self.steps_per_call), 1)
                        if training else steps)
-            calls = (self.train_step(self.state, self.banks, gen, self.gen)
+            calls = (self.train_step(self.state, self._train_banks(), gen,
+                                     self.gen)
                      if training else
-                     self.eval_step(self.state, self.val_banks, gen)
+                     self.eval_step(self.state, self._val_banks(), gen)
                      for _ in range(n_calls))
         else:
             calls = (self.train_step(self.state, next(data_iter), self.gen)
@@ -174,6 +191,11 @@ class TrainLoop:
         # stop_training would end a reused loop after one epoch, and the
         # returned history covers this run only
         self.stop_training = False
+        if self.streaming:
+            # the cursor is a function of the optimizer step, so a restored
+            # state continues the chunk schedule; for a fresh loop, or one
+            # continuing its own run, this changes nothing
+            self.banks.restore_cursor(self.state.step // self.steps_per_call)
         run_history: List[dict] = []
         for cb in callbacks:
             cb.set_loop(self)

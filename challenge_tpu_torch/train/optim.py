@@ -117,6 +117,11 @@ class KerasAdam(torch.optim.Optimizer):
             group['step'] = torch.zeros((), dtype=torch.int64,
                                         device=p.device)
 
+    def slot_names(self):
+        """The tensors the step keeps per parameter in ``self.state[p]``,
+        each made as zeros like the parameter."""
+        return ('m', 'v')
+
     def second_moment(self, state, g, b2: float):
         """Update ``state['v']`` for the clipped gradient ``g`` (``m`` is
         already this step's); returns the tensor under the root."""
@@ -160,6 +165,9 @@ class AdaBelief(KerasAdam):
         super().__init__(params, lr, clipvalue, beta_1, beta_2, epsilon)
         self.amsgrad = amsgrad
 
+    def slot_names(self):
+        return ('m', 'v', 'vhat') if self.amsgrad else ('m', 'v')
+
     def second_moment(self, state, g, b2: float):
         v = state['v']
         v.mul_(b2).add_((1 - b2) * (g - state['m']).square())
@@ -186,6 +194,9 @@ class KerasSGD(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, clipvalue=clipvalue,
                                       momentum=momentum))
         _device_lr(self)
+
+    def slot_names(self):
+        return ('accum',)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -217,6 +228,9 @@ class KerasRMSprop(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, clipvalue=clipvalue, rho=rho,
                                       momentum=momentum, epsilon=epsilon))
         _device_lr(self)
+
+    def slot_names(self):
+        return ('ms', 'mom')
 
     @torch.no_grad()
     def step(self, closure=None):

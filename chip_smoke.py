@@ -183,6 +183,32 @@ without the result line:
    trainer's configuration in bfloat16 with ``grad_accum=2`` in banks
    mode, 2 plain and 2 graphed steps, two launches a step, with its
    peaks; printed on the ``BF16`` line with 4g's and 7f's results;
+5i. bank rotation (``data/streaming.py``): the seed-0 sources at 4 times
+   the count of phase 2 (128 backgrounds of 1,875 frames, 2,048 voices,
+   512 noises) dealt into 4 chunks of pinned host banks, float32 and int8;
+   on each chunk, swapped into the card's slot, the float32 and int8
+   magnitude kernels against their plain versions, bit for bit; under
+   cuDNN's deterministic algorithms, vad v8's graphed fused step streamed
+   over two whole rotations (``chunk_steps`` 1, 8 steps, one float32
+   launch a step) against the plain eager steps on the same rotation, at
+   0.0 on every weight, BN statistic, Adam slot and metric; the upload of
+   a chunk (``chunk_upload_ms``) and the swap's device copy
+   (``swap_ms``) timed with CUDA events; and the resident graphed step
+   (``fused_step_ms``) against the streamed one (``stream_step_ms``) at
+   ``chunk_steps`` 4 and 1, in turns (resident, 4, 1, 1, 4, resident), 16
+   steps a turn, with each loop's first-call peak and the memory it holds
+   after, above what was held before it; printed on the ``STREAM`` line;
+5j. resume on the card: under cuDNN's deterministic algorithms, vad v8 in
+   banks mode with SWA and ``TrainStateCheckpoint`` for 4 epochs of 5
+   steps; the same stopped after 2 epochs, restored
+   (``restore_train_state``) into a fresh loop and run for epochs 2-3:
+   weights, BN statistics, Adam's slots, lr and step, and the SWA average
+   equal the uninterrupted run's at 0.0; then that checkpoint restored
+   into the uninterrupted loop, whose graph is captured, and epochs 2-3
+   replayed: equal again. Once on resident banks and once streamed
+   (``chunk_steps`` 3, so the resume lands mid-rotation); then
+   ``ckpt_save_ms`` and ``ckpt_restore_ms`` of vad v8 and of the density
+   model at the trainer's defaults (17,564,315 parameters);
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the se triple's: its sources read once, three windows written), the
@@ -265,7 +291,16 @@ without the result line:
    weights); ``cli.trainer.main --compute_dtype bfloat16`` at its
    defaults with ``--n_chan 2 --bank_dtype int8`` for 2 epochs of 1 step
    (34 int8 launches; one epoch raises ``NO_SWA_ERROR``, as in JAX), its
-   float32 ``{name}.h5`` and ``_SWA.h5``.
+   float32 ``{name}.h5`` and ``_SWA.h5``;
+7g. the long-run CLI chain in that directory: ``cli.sj_train.main`` with
+   vad v8, ``--bank_dtype int8 --stream_chunks 2 --chunk_steps 2
+   --ckpt_dir D --ckpt_every_epochs 1`` for 2 epochs of 5 steps (42 int8
+   launches, full-state checkpoints at steps 5 and 10), then the same with
+   ``--epochs 3 --resume True``, which must print JAX's resume line, train
+   epoch 3 only (21 launches) and leave the trio and a 3-row CSV; and
+   ``cli.trainer.main`` at its defaults with ``--n_chan 2 --grad_accum 2
+   --ckpt_dir D2`` for 2 epochs of 1 step (36 float32 launches), then
+   ``--resume True --epochs 3`` (18), resumed from step 2.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -301,6 +336,8 @@ from challenge_tpu_torch.data.labels import (
     label_downsample, speech_enhancement_preprocess)
 from challenge_tpu_torch.data.pipeline import FeatureFn
 from challenge_tpu_torch.data.specset import FLAT_DTYPES
+from challenge_tpu_torch.data.streaming import (
+    StreamingBanks, bank_tensors, build_streaming_banks)
 from challenge_tpu_torch.evaluate import events, infer
 from challenge_tpu_torch.models.layers import BatchNorm, set_compute_dtype
 from challenge_tpu_torch.models.registry import ModelBundle, get_density_model
@@ -314,7 +351,10 @@ from challenge_tpu_torch.ops.synth import (
     synthesize_flat, synthesize_flat_plain, synthesize_magnitude,
     synthesize_magnitude_plain, synthesize_mel, synthesize_mel_plain,
     synthesize_se, synthesize_se_plain)
-from challenge_tpu_torch.train.checkpoint import load_weights
+from challenge_tpu_torch.train import SWA, TrainStateCheckpoint
+from challenge_tpu_torch.train.checkpoint import (
+    checkpoint_steps, load_weights, restore_train_state, save_train_state,
+    train_state_tensors)
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
 from challenge_tpu_torch.parallel import make_fused_train_step
 from challenge_tpu_torch.train.optim import make_optimizer
@@ -336,6 +376,9 @@ DENSITY_FUSED_STEPS = 2                    # then through kernel B4
 DENSITY_TIMED_STEPS = 10                   # its step time, right after
 DENSITY_PRETRAIN_EPOCHS = 2                # phase 7e's second run
 BF16_TIMED_STEPS = 10                      # phase 5h, each turn (se: 5)
+STREAM_CHUNKS = 4                          # phases 5i, 5j
+STREAM_TIMED_STEPS = 16                    # phase 5i, each turn
+RESUME_EPOCHS, RESUME_STEPS, RESUME_STOP = 4, 5, 2     # phase 5j
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
@@ -1357,6 +1400,310 @@ def bf16_fused_checks(banks, banks2048) -> dict:
     return res
 
 
+def banks_gib(banks) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in bank_tensors(banks)) / 2**30
+
+
+def copy_tensors(dsts, srcs) -> None:
+    for d, s in zip(dsts, srcs):
+        d.copy_(s, non_blocking=True)
+
+
+def stream_run(cfg, sb, steps: int, graphed: bool, seed: int = 11):
+    """``steps`` calls of vad's fused step (one step a call) on the
+    rotation ``sb``, from a fresh state of seed 0 and a generator of
+    ``seed``, graphed or its plain version: (state, per-call metrics, the
+    launches, counted from 0)."""
+    bundle = get_model(cfg)
+    state = init_state(bundle, 0)
+    step = make_fused_train_step(bundle, cfg, steps_per_call=1)
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    run = step if graphed else step.plain
+    cuda.reset_launch_counts()
+    metrics = [run(state, sb.next_banks(), gen) for _ in range(steps)]
+    torch.cuda.synchronize()
+    return state, metrics, dict(cuda.LAUNCHES)
+
+
+def stream_checks(dev, resident) -> tuple:
+    """Phase 5i: bank rotation at 4 times phase 2's sources, 4 chunks. On
+    each chunk in the card's slot, B1 and B3-int8 against their plain
+    versions at 0.0; the graphed streamed step over two rotations against
+    the plain one at 0.0 (cuDNN's deterministic algorithms); the upload,
+    the swap and the streamed step against the resident one, timed.
+    Returns (results, the pinned float32 chunks, for phase 5j)."""
+    start = time.perf_counter()
+    res = {}
+    src = sources(0, 4 * 32, 1875, 4 * 512, (40, 130), 4 * 128, (20, 100))
+    sbs = {name: build_streaming_banks(*src, n_chunks=STREAM_CHUNKS,
+                                       n_frame=512, flat_dtype=name,
+                                       chunk_steps=4)
+           for name in ('float32', 'int8')}
+    del src
+    res['build_s'] = time.perf_counter() - start
+    res['chunk_gib'] = {k: banks_gib(sb.chunks[0]) for k, sb in sbs.items()}
+    res['set_gib'] = {k: sum(banks_gib(c) for c in sb.chunks)
+                      for k, sb in sbs.items()}
+    log(f'stream chunks: {json.dumps(res)}')
+    cfg = Config(model_type='vad', v=8)
+    f32 = KERNELS[torch.float32][0]
+    # each chunk through the slot (a swap, after the first): its contents,
+    # then each kernel against its plain version on draws from it
+    errs = {}
+    for name, sb in sbs.items():
+        kernel = KERNELS[FLAT_DTYPES[name]][0]
+        errs[kernel] = []
+        for c in range(sb.n_chunks):
+            sb.restore_cursor(c * sb.chunk_steps)
+            banks = sb.peek()
+            if not all(torch.equal(a, b.to(dev)) for a, b in
+                       zip(bank_tensors(banks), bank_tensors(sb.chunks[c]))):
+                raise AssertionError(f'{name} slot does not hold chunk {c}')
+            gen = torch.Generator(device=dev).manual_seed(20 + c)
+            for _ in range(2):
+                d = mixture.draw(gen, banks, cfg.batch_size, cfg.n_frame,
+                                 max_voices=cfg.max_voices,
+                                 max_noises=cfg.max_noises, snr=cfg.snr)
+                errs[kernel].append(max_abs_diff(mixture.synth_args(banks,
+                                                                    d)))
+    res['max_abs_err'] = {k: max(v) for k, v in errs.items()}
+    log(f'stream kernel vs plain on each chunk: {json.dumps(errs)}')
+    if any(v != 0.0 for v in res['max_abs_err'].values()):
+        raise AssertionError('a kernel disagrees with its plain version on '
+                             'chunk banks')
+    chunks = sbs['float32'].chunks
+    del sbs
+    # the graphed streamed step against the plain one, two rotations
+    steps = 2 * STREAM_CHUNKS
+    with cudnn_deterministic():
+        recs, launches = [], []
+        for graphed in (False, False, True):
+            sb = StreamingBanks(chunks, chunk_steps=1)
+            state, metrics, counts = stream_run(cfg, sb, steps, graphed)
+            if (sb.dispatches, sb.current_chunk) != (steps, 0):
+                raise AssertionError(f'rotation at {sb.dispatches}, '
+                                     f'{sb.current_chunk}')
+            recs.append(fused_record(state, metrics))
+            launches.append(counts)
+            del state, sb
+    res['spread'] = fused_gap(recs[0], recs[1])
+    res['graph_gap'] = fused_gap(recs[0], recs[2])
+    res['launches'] = launches[2]
+    log(f'stream graph vs plain, two rotations: {res["graph_gap"]}, plain '
+        f'runs {res["spread"]}')
+    check_launches('stream graphed', launches[2], {f32: steps})
+    if res['graph_gap'][0] != 0.0:
+        raise AssertionError(f'streamed graph vs plain: {res["graph_gap"]}')
+    del recs
+    # a chunk's upload from pinned memory and the swap's device copy, on
+    # the compute stream with CUDA events
+    slot = [torch.empty_like(t, device=dev) for t in bank_tensors(chunks[0])]
+    staged = [torch.empty_like(t) for t in slot]
+    res['chunk_upload_ms'] = gpu_ms(
+        copy_tensors, [(staged, bank_tensors(c)) for c in chunks], 8)
+    res['swap_ms'] = gpu_ms(copy_tensors, [(slot, staged)], 16)
+    nbytes = res['chunk_gib']['float32'] * 2**30
+    res['upload_gb_s'] = nbytes / res['chunk_upload_ms'] / 1e6
+    res['swap_bound_ms'] = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    del slot, staged
+    # the resident graphed step against the streamed ones, in turns; each
+    # loop's first call (the eager step, the capture, a replay) with its
+    # peak and the memory it holds after, above what was held before it
+    loops, res['peak_gib'], res['held_gib'] = {}, {}, {}
+    for name, cs in (('resident', 0), ('chunk_steps_4', 4),
+                     ('chunk_steps_1', 1)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loop = loops[name] = TrainLoop(get_model(cfg), banks=(
+            StreamingBanks(chunks, chunk_steps=cs) if cs else resident))
+        loop.run_epoch(None, 2, training=True, epoch=99)
+        torch.cuda.synchronize()
+        res['peak_gib'][name] = (torch.cuda.max_memory_allocated()
+                                 - base) / 2**30
+        res['held_gib'][name] = (torch.cuda.memory_allocated()
+                                 - base) / 2**30
+    times = {name: [] for name in loops}
+    n = STREAM_TIMED_STEPS
+    for name in ('resident', 'chunk_steps_4', 'chunk_steps_1',
+                 'chunk_steps_1', 'chunk_steps_4', 'resident'):
+        loop = loops[name]
+        times[name].append(wall_ms(lambda: loop.run_epoch(
+            None, n, training=True, epoch=0), 1) / n)
+    res['fused_step_ms'] = times['resident']
+    res['stream_step_ms'] = {k: v for k, v in times.items()
+                             if k != 'resident'}
+    del loops
+    torch.cuda.empty_cache()
+    res['stream_5i_s'] = time.perf_counter() - start
+    log(f'phase 5i: {res["stream_5i_s"]:.3f} s')
+    return res, chunks
+
+
+def state_gap(want: dict, state) -> float:
+    """The largest absolute difference of ``state``'s checkpointed tensors
+    from ``want`` (``train_state_tensors`` cloned, with 'step' and
+    'swa_count'); inf where the step or SWA count differ."""
+    got = train_state_tensors(state)
+    if set(got) != set(want) - {'step', 'swa_count'} or \
+            (state.step, state.swa_count) != (want['step'],
+                                              want['swa_count']):
+        return math.inf
+    return max(float((got[k].double() - want[k].double()).abs().max())
+               if got[k].numel() else 0.0 for k in got)
+
+
+def resume_checks(resident, chunks) -> dict:
+    """Phase 5j: resume on the card, resident and streamed (chunk_steps 3),
+    under cuDNN's deterministic algorithms; then the checkpoints timed."""
+    start = time.perf_counter()
+    res = {'launches': []}
+    cfg = Config(model_type='vad', v=8)
+    f32 = KERNELS[torch.float32][0]
+    with cudnn_deterministic(), \
+            tempfile.TemporaryDirectory(prefix='chip_smoke_ckpt_') as d:
+        for mode in ('resident', 'streamed'):
+            def make():
+                banks = (resident if mode == 'resident'
+                         else StreamingBanks(chunks, chunk_steps=3))
+                return TrainLoop(get_model(cfg), banks=banks)
+
+            def fit(loop, tag, initial=0, epochs=RESUME_EPOCHS):
+                cuda.reset_launch_counts()
+                loop.fit(epochs=epochs, steps_per_epoch=RESUME_STEPS,
+                         verbose=0, initial_epoch=initial, callbacks=[
+                             SWA(start_epoch=1, swa_freq=1, verbose=False),
+                             TrainStateCheckpoint(
+                                 os.path.join(d, f'{mode}_{tag}'), 1)])
+                torch.cuda.synchronize()
+                launches = dict(cuda.LAUNCHES)
+                check_launches(f'resume {mode} {tag}', launches,
+                               {f32: (epochs - initial) * RESUME_STEPS})
+                res['launches'].append(launches)
+
+            full = make()
+            fit(full, 'full')
+            want = {k: v.clone()
+                    for k, v in train_state_tensors(full.state).items()}
+            want.update(step=full.state.step, swa_count=full.state.swa_count)
+            part = make()
+            fit(part, 'part', epochs=RESUME_STOP)
+            del part
+            ckpt = os.path.join(d, f'{mode}_part')
+            resumed = make()
+            restore_train_state(ckpt, resumed.state)
+            initial = (resumed.state.step
+                       // resumed.steps_per_fused_epoch(RESUME_STEPS))
+            if initial != RESUME_STOP:
+                raise AssertionError(f'resumed at epoch {initial}')
+            cursor = ((resumed.state.step // 3) % STREAM_CHUNKS,
+                      resumed.state.step % 3) if mode == 'streamed' else None
+            fit(resumed, 'resumed', initial)
+            gap = state_gap(want, resumed.state)
+            del resumed
+            # into the loop whose graph is captured: the same addresses
+            ptrs = {k: v.data_ptr()
+                    for k, v in train_state_tensors(full.state).items()}
+            restore_train_state(ckpt, full.state)
+            moved = [k for k, v in train_state_tensors(full.state).items()
+                     if v.data_ptr() != ptrs[k]]
+            fit(full, 'replayed', initial)
+            replay_gap = state_gap(want, full.state)
+            del full
+            res[mode] = dict(resumed_gap=gap, captured_graph_gap=replay_gap,
+                             moved_tensors=moved, step=want['step'],
+                             swa_count=want['swa_count'],
+                             resume_cursor=cursor)
+            log(f'resume {mode}: {json.dumps(res[mode])}')
+            if gap != 0.0 or replay_gap != 0.0 or moved:
+                raise AssertionError(f'resume {mode}: {res[mode]}')
+        # the checkpoints timed: vad v8 and the density model
+        for name, bundle in (('vad_v8', get_model(cfg)),
+                             ('density', get_density_model(
+                                 density_config(), seed=0))):
+            state = init_state(bundle, 0)
+            path = os.path.join(d, f'timed_{name}')
+            save_train_state(path, state, step=1)
+            restore_train_state(path, state)    # makes the optimizer's slots
+            r = res[name] = dict(params=sum(
+                p.numel() for p in bundle.module.parameters()),
+                ckpt_save_ms=[], ckpt_restore_ms=[])
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save_train_state(path, state, step=2 + i)
+                r['ckpt_save_ms'].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                restore_train_state(path, state)
+                torch.cuda.synchronize()
+                r['ckpt_restore_ms'].append((time.perf_counter() - t0) * 1e3)
+            r['ckpt_mb'] = os.path.getsize(os.path.join(
+                path, str(4), 'train_state.pt')) / 1e6
+            log(f'checkpoint {name}: {json.dumps(r)}')
+            del bundle, state
+    res['resume_5j_s'] = time.perf_counter() - start
+    log(f'phase 5j: {res["resume_5j_s"]:.3f} s')
+    return res
+
+
+def stream_resume_cli_chain(d: str) -> dict:
+    """Phase 7g, in the CLI chain's directory ``d``: ``cli.sj_train`` vad v8
+    on an int8 rotation of 2 chunks with full-state checkpoints, 2 epochs
+    then resumed to 3; ``cli.trainer`` at its defaults with ``--grad_accum
+    2`` and ``--ckpt_dir``, 2 epochs of 1 step then resumed to 3."""
+    start = time.perf_counter()
+    res = {'stream_cli_launches': [], 'stream_cli_s': []}
+    ck = os.path.join(d, 'ck7g')
+    base = ['--model_type', 'vad', '--v', '8', '--n_chan', '2',
+            '--datapath', d, '--name', 'stream7g', '--bank_dtype', 'int8',
+            '--stream_chunks', '2', '--chunk_steps', '2', '--ckpt_dir', ck,
+            '--ckpt_every_epochs', '1', '--steps_per_epoch', str(CLI_STEPS)]
+    files = Config()
+    dens = ['--name', 'dens7g', '--n_chan', '2', '--grad_accum', '2',
+            '--ckpt_dir', os.path.join(d, 'ck7g_density'),
+            '--steps_per_epoch', '1', '--datapath', d]
+    for flag in ('background_sounds', 'voices', 'labels', 'noises',
+                 'test_background_sounds', 'test_voices', 'test_labels'):
+        dens += [f'--{flag}', getattr(files, flag)]
+    # (which, argv, its kernel, training batches an epoch, the step saved
+    # after 2 epochs, main): the trainer's step is 2 microbatches
+    for which, argv, kernel, steps, saved, main in (
+            ('sj_train', base, 'synth_mag_int8', CLI_STEPS, 2 * CLI_STEPS,
+             sj_train.main),
+            ('trainer', dens, 'synth_mag_f32', 2, 2, trainer.main)):
+        for epochs, extra in ((2, []), (3, ['--resume', 'True'])):
+            trained = 1 if extra else epochs
+            batches = trained * (steps + CLI_VAL_STEPS)
+            with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+                run, counts, secs = run_cli(argv + ['--epochs', str(epochs)]
+                                            + extra, kernel, batches,
+                                            main=main)
+            res['stream_cli_launches'].append(counts)
+            res['stream_cli_s'].append(secs)
+            text = out.getvalue()
+            if extra:
+                line = f'resumed from step {saved} (epoch 2)'
+                if line not in text or 'Epoch 3/3' not in text or \
+                        'Epoch 2/3' in text:
+                    raise AssertionError(f'{which} did not resume: {line!r}')
+        ckpt_dir = argv[argv.index('--ckpt_dir') + 1]
+        res[f'{which}_ckpt_steps'] = checkpoint_steps(ckpt_dir)
+        log_file = run + ('.csv' if which == 'sj_train' else '.log')
+        with open(log_file) as f:
+            rows = f.read().strip().splitlines()
+        if len(rows) != 4 or not rows[0].startswith('epoch'):
+            raise AssertionError(f'{log_file}: {rows}')
+        if which == 'sj_train':
+            check_trio(run)
+    if res['sj_train_ckpt_steps'] != [5, 10, 15] or \
+            res['trainer_ckpt_steps'] != [2, 3]:
+        raise AssertionError(f'checkpoint steps: {res}')
+    res['stream_7g_s'] = time.perf_counter() - start
+    log(f'phase 7g: {res["stream_7g_s"]:.3f} s')
+    return res
+
+
 def density_args(extra=()):
     """The density trainer's flags at their defaults, with ``--n_chan 2``
     (at its default 1 it refuses to train, ROADMAP C9)."""
@@ -2185,6 +2532,7 @@ def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
             res.update(eff_cli_chain(d))
             res.update(density_cli_chain(d))
             res.update(bf16_cli_chain(d))
+            res.update(stream_resume_cli_chain(d))
         finally:
             os.chdir(cwd)
     return res
@@ -2522,6 +2870,11 @@ def main(argv) -> int:
     # 5h. this slice's main path: the fused step with bfloat16 models
     bf16_res = bf16_fused_checks(banks['float32'], banks2048['float32'])
     del banks2048
+    # 5i. this slice's main path: the graphed step on a rotation of chunk
+    # banks; 5j. resume on the card, resident and mid-rotation
+    stream_res, chunks = stream_checks(dev, banks['float32'])
+    resume_res = resume_checks(banks['float32'], chunks)
+    del chunks
 
     # 6. times: each kernel on the main path's draws (the flat-complex
     # ones on the full mix, the se triple on the same draws); then the
@@ -2735,10 +3088,17 @@ def main(argv) -> int:
         'cli_launches': {'sj_train': cli['bf16_cli_launches'],
                          'trainer': cli['bf16_density_launches']},
         'card': smi}))
+    log('STREAM ' + json.dumps({
+        **{k: v for k, v in stream_res.items() if k != 'launches'},
+        'resume': {k: v for k, v in resume_res.items() if k != 'launches'},
+        **{k: cli[k] for k in ('stream_cli_s', 'sj_train_ckpt_steps',
+                               'trainer_ckpt_steps', 'stream_7g_s')},
+        'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
-                             if not k.endswith('launches')
+                             if not k.endswith(('launches', 'ckpt_steps'))
                              and not k.startswith(('density', 'bf16_',
-                                                   'loss_optim'))}))
+                                                   'loss_optim',
+                                                   'stream_'))}))
     log(smi)
     runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
             'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
@@ -2760,6 +3120,9 @@ def main(argv) -> int:
         bf16_res['density_launches'], cli['bf16_cli_launches'],
         cli['bf16_density_launches']] + [
         r['launches'] for r in cli['loss_optim'].values()]
+    # the launches of phases 5i, 5j and 7g, on chunk banks and resumed
+    stream_launches = ([stream_res['launches']] + resume_res['launches']
+                       + cli['stream_cli_launches'])
     log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': 'challenge_tpu_torch/csrc/' + (
@@ -2769,6 +3132,7 @@ def main(argv) -> int:
         'launches_per_step': runs[name][0].get(name, 0) / runs[name][1],
         'density_launches': density_launches.get(name, {}).get(name, 0),
         'bf16_launches': sum(c.get(name, 0) for c in bf16_launches),
+        'stream_launches': sum(c.get(name, 0) for c in stream_launches),
         'max_abs_err': max(errs[name].values()),
         **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {

@@ -33,6 +33,7 @@ from challenge_tpu_torch.data.pipeline import build_banks
 from challenge_tpu_torch.interop.jax_weights import flax_to_state_dict
 from challenge_tpu_torch.models.registry import ModelBundle
 from challenge_tpu_torch.models.vad import VADModel
+from challenge_tpu_torch.parallel import mesh
 from challenge_tpu_torch.train import callbacks as cb
 from challenge_tpu_torch.train import checkpoint
 from challenge_tpu_torch.train.loop import TrainLoop
@@ -40,6 +41,16 @@ from challenge_tpu_torch.train.optim import KerasAdam, custom_scheduler
 
 ARGV = ['--model_type', 'vad', '--v', '3', '--n_frame', '64',
         '--batch_size', '2', '--epochs', '3', '--steps_per_epoch', '2']
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _two_torch_threads():
+    """As tests/test_torch_fused.py: on every core, each of the suite's
+    workers oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize('bank_dtype', ['float32', 'int8'])
@@ -74,15 +85,108 @@ def test_sj_train_then_eval_cli_on_the_cpu(tmp_path, monkeypatch, capsys,
 
 
 @pytest.mark.parametrize('flag', [['--keras_ckpt', 'True'],
-                                  ['--ckpt_dir', 'ck'],
-                                  ['--resume', 'True'],
-                                  ['--stream_chunks', '2'],
                                   ['--bank_shard', 'True']])
 def test_sj_train_refuses_unported_flags(tmp_path, monkeypatch, flag):
+    """``--keras_ckpt`` (ROADMAP A15); ``--bank_shard`` where two devices
+    divide the batch, so JAX would shard the banks over a mesh (ROADMAP
+    A14, C14)."""
     monkeypatch.chdir(tmp_path)
     make_datafiles(tmp_path)
+    monkeypatch.setattr(mesh, 'device_count', lambda device: 2)
     with pytest.raises(NotImplementedError, match='ROADMAP A1[45]'):
         sj_train.main(ARGV + DATA_FLAGS + flag + ['--device', 'cpu'])
+
+
+# ------------------------------------------------ the device policy (C14)
+POLICY_CASES = [  # (visible devices, --n_devices, batch, --bank_shard)
+    (1, 0, 12, False), (1, 0, 12, True), (1, 4, 12, False),
+    (2, 0, 12, False), (2, 1, 12, True), (2, 1, 12, False),
+    (5, 0, 12, False), (5, 0, 12, True), (8, 3, 12, False),
+    (8, 0, 2, False), (4, 0, 2, True), (8, 0, 8, True)]
+
+
+@pytest.mark.parametrize('avail,n_devices,batch,bank_shard', POLICY_CASES)
+def test_device_policy_is_jax_mesh_for_config(monkeypatch, capsys, avail,
+                                              n_devices, batch,
+                                              bank_shard):
+    """ROADMAP C14: over the same device count, JAX's ``mesh_for_config``
+    and the port's ``devices_for_config`` print the same lines and raise
+    the same ValueErrors; where JAX trains single-device the port returns
+    1, and where JAX builds a mesh the port raises naming A14."""
+    from challenge_tpu.parallel import mesh as jmesh
+    cfg = dict(model_type='vad', v=8, n_devices=n_devices,
+               batch_size=batch, bank_shard=bank_shard)
+    monkeypatch.setattr(jmesh.jax, 'devices',
+                        lambda devices=jax.devices(): devices[:avail])
+    monkeypatch.setattr(mesh, 'device_count', lambda device: avail)
+    try:
+        ref = jmesh.mesh_for_config(jconfig.Config(**cfg))
+    except ValueError as e:
+        ref = e
+    jax_out = capsys.readouterr().out
+    if isinstance(ref, ValueError):
+        with pytest.raises(ValueError) as got:
+            mesh.devices_for_config(Config(**cfg), torch.device('cpu'))
+        assert str(got.value) == str(ref)
+    elif ref is None:
+        assert mesh.devices_for_config(Config(**cfg),
+                                       torch.device('cpu')) == 1
+    else:
+        assert ref.devices.size > 1
+        with pytest.raises(NotImplementedError,
+                           match=f'mesh over {ref.devices.size} devices.*'
+                                 'ROADMAP A14'):
+            mesh.devices_for_config(Config(**cfg), torch.device('cpu'))
+    assert capsys.readouterr().out == jax_out
+
+
+def test_device_count_is_cuda_s_or_one_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 3)
+    assert mesh.device_count(torch.device('cuda', 0)) == 3
+    assert mesh.device_count(torch.device('cpu')) == 1
+
+
+@pytest.mark.parametrize('cli,count,flags,expect', [
+    ('sj_train', 1, ['--n_devices', '2'], 'trains'),
+    ('sj_train', 2, ['--batch_size', '12'], 'A14'),
+    ('sj_train', 5, [], 'does not divide'),
+    ('sj_train', 1, ['--bank_shard', 'True'], 'bank_shard has no effect'),
+    ('sj_train', 2, ['--n_devices', '1', '--bank_shard', 'True'],
+     'n_devices caps it'),
+    ('trainer', 1, ['--n_devices', '2'], 'trains'),
+    ('trainer', 2, ['--batch_size', '12'], 'A14'),
+    ('trainer', 5, [], 'does not divide'),
+    ('trainer', 5, ['--bank_shard', 'True'], 'does not divide the 5')])
+def test_clis_follow_the_device_policy(tmp_path, monkeypatch, capsys, cli,
+                                       count, flags, expect):
+    """Both CLIs take JAX's policy over the (monkeypatched) device count,
+    before any data is read: one device trains, with the bank_shard note;
+    an indivisible batch trains single-device with JAX's line; a mesh
+    raises naming A14; bank_shard that cannot shard raises JAX's
+    ValueError."""
+    from challenge_tpu_torch.cli import trainer
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
+    monkeypatch.setattr(mesh, 'device_count', lambda device: count)
+    if cli == 'sj_train':
+        main = sj_train.main
+        argv = ARGV[:-4] + ['--epochs', '1', '--steps_per_epoch', '1']
+    else:
+        main = trainer.main
+        argv = DENSITY_ARGV[:-4] + ['--epochs', '2', '--steps_per_epoch',
+                                    '1']
+    argv += ['--datapath', str(tmp_path), '--device', 'cpu'] + DATA_FLAGS
+    if expect in ('A14', 'n_devices caps it', 'does not divide the 5'):
+        err = NotImplementedError if expect == 'A14' else ValueError
+        with pytest.raises(err, match=expect):
+            main(argv + flags)       # no data files: raised before reading
+        return
+    make_datafiles(tmp_path)
+    main(argv + flags)
+    out = capsys.readouterr().out
+    assert 'Epoch 1/' in out
+    if expect != 'trains':
+        assert expect in out
 
 
 def test_eval_cli_refuses_aot_export():
@@ -419,13 +523,13 @@ def test_trainer_refuses_n_chan_but_2(n_chan):
 
 @pytest.mark.parametrize('flag,item', [
     (['--n_devices', '2'], 'A14'), (['--bank_shard', 'True'], 'A14'),
-    (['--stream_chunks', '2'], 'A14'), (['--ckpt_dir', 'ck'], 'A15'),
-    (['--resume', 'True'], 'A15'), (['--keras_ckpt', 'True'], 'A15')])
-def test_trainer_refuses_unported_flags(flag, item):
+    (['--keras_ckpt', 'True'], 'A15')])
+def test_trainer_refuses_unported_flags(monkeypatch, flag, item):
     """Each unported flag raises naming its ROADMAP item, before any data
-    is read: in the CLI or in the layer that owns the flag (the model,
-    the loop or the banks)."""
+    is read; ``--n_devices`` and ``--bank_shard`` where two devices divide
+    the default batch of 12, so JAX would build a mesh (C14)."""
     from challenge_tpu_torch.cli import trainer
+    monkeypatch.setattr(mesh, 'device_count', lambda device: 2)
     with pytest.raises(NotImplementedError,
                        match=f'{flag[0][2:]}.*ROADMAP {item}'):
         trainer.main(['--name', 'd', '--model', 'EfficientNetB0', '--n_chan',
