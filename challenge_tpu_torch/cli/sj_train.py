@@ -21,8 +21,9 @@ single-device; a data-parallel mesh raises (ROADMAP A14).
 card in N chunks, ``--chunk_steps`` dispatches each
 (``data.streaming``). ``--ckpt_dir`` saves the full train state every
 ``--ckpt_every_epochs`` epochs and at the end; ``--resume True`` restores
-the latest one and continues from its epoch. ``--keras_ckpt`` is not
-ported (ROADMAP A15).
+the latest one and continues from its epoch. ``--keras_ckpt True`` writes
+the trio as Keras HDF5 files (``interop.keras_h5``) instead of
+``torch.save`` files; the full train state stays ``torch.save``.
 
 The se v9 family trains in two runs. ``--pretrain True`` trains the U-Net
 and names its run ``..._weight``. Without the flag (the reference's
@@ -83,13 +84,6 @@ def make_banks(config: Config, training: bool = True, n_classes: int = 3,
                        device=device)
 
 
-def refuse_keras_ckpt(config: Config) -> None:
-    """Keras HDF5 checkpoints wait for ROADMAP A15."""
-    if config.keras_ckpt:
-        raise NotImplementedError(
-            '--keras_ckpt is not ported yet (ROADMAP A15)')
-
-
 def resume(config: Config, loop: TrainLoop) -> int:
     """With ``--ckpt_dir`` and ``--resume``, restore the latest full train
     state into ``loop`` and return the epoch it reached, as JAX's CLIs do
@@ -119,7 +113,6 @@ def select_monitors(config: Config):
 def main(argv=None) -> str:
     """Train; returns the run name."""
     config = config_from_args(argv, extra=DEVICE_FLAG)
-    refuse_keras_ckpt(config)
     config.loss = config.loss.upper()
     if config.loss != 'MSE':
         config.mse_multiplier = 1
@@ -139,7 +132,7 @@ def main(argv=None) -> str:
     print(name)
 
     if config.model_type == 'se' and config.v == 9 and not config.pretrain:
-        loop.set_weights(load_weights(name, device))
+        loop.set_weights(load_weights(name, device, bundle))
         print('loaded pretrained model')
     initial_epoch = resume(config, loop)
 
@@ -147,13 +140,14 @@ def main(argv=None) -> str:
     callbacks = [
         CSVLogger(name.replace('.h5', '.csv')),
         SWA(start_epoch=config.epochs // 4, swa_freq=2),
-        ModelCheckpoint(name, monitor=checkpoint_monitor, verbose=1),
+        ModelCheckpoint(name, monitor=checkpoint_monitor, verbose=1,
+                        keras=config.keras_ckpt),
         TerminateOnNaN(),
         TensorBoard(log_dir=os.path.join('tensorboard_log',
                                          name.split('.h5')[0])),
         EarlyStopping(monitor=earlystop_monitor, patience=config.patience,
                       restore_best_weights=True),
-        EvalCallback(config, name),
+        EvalCallback(config, name, keras=config.keras_ckpt),
         LearningRateScheduler(
             custom_scheduler(4096, config.epochs / 12, config.lr_div)),
     ]
@@ -167,7 +161,8 @@ def main(argv=None) -> str:
                  initial_epoch=initial_epoch)
         print('best model:', name.replace('.h5', '_SWA.h5'))
         save_weights(name.replace('.h5', '_SWA.h5'),
-                     loop.state.module.state_dict())
+                     loop.state.module.state_dict(), keras=config.keras_ckpt,
+                     bundle=bundle)
     except NO_SWA_ERROR:
         pass
     print(name.split('.h5')[0])

@@ -10,7 +10,8 @@ count + total-variation loss, with AdaBelief by default, an l1/l2 kernel
 penalty when ``--l2`` > 0 (the reference's gate: an l1-only run is
 unregularized), and cos_sim as its only metric. Callbacks, in the
 reference's order: the CSV log ``{name}.log``, SWA from epochs / 2,
-``{name}.h5`` at each new best ``val_loss``, a stop on NaN, then the warmup
+``{name}.h5`` at each new best ``val_loss`` (a Keras HDF5 file with
+``--keras_ckpt True``, as ``_SWA.h5``), a stop on NaN, then the warmup
 schedule, or with ``--pretrain`` (the reference's ``type=bool`` flag: any
 value is True) ``{name}.h5`` is loaded first and the learning rate cut on
 plateaus of the training loss. The SWA average is written to
@@ -42,8 +43,7 @@ from __future__ import annotations
 
 import argparse
 
-from challenge_tpu_torch.cli.sj_train import (
-    make_banks, refuse_keras_ckpt, resume)
+from challenge_tpu_torch.cli.sj_train import make_banks, resume
 from challenge_tpu_torch.config import Config, str2bool
 from challenge_tpu_torch.data.pipeline import DevicePipeline
 from challenge_tpu_torch.device import resolve_device
@@ -143,16 +143,15 @@ def to_config(ns) -> Config:
 
 
 def refuse_unported(config: Config) -> None:
-    """n_chan != 2 (ROADMAP C9) and ``--keras_ckpt`` (ROADMAP A15), before
-    any data is read. ``--compute_dtype bfloat16`` trains: the model
-    computes in it, and its checkpoints stay float32."""
+    """n_chan != 2 (ROADMAP C9), before any data is read.
+    ``--compute_dtype bfloat16`` trains: the model computes in it, and its
+    checkpoints stay float32."""
     if config.n_chan != 2:
         raise ValueError(
             f'n_chan={config.n_chan}: the density features keep 2 channels '
             'at every n_chan (no channel map), so a model built for '
             f'{config.n_chan} cannot train on them; the JAX trainer fails '
             'its first step the same way (ROADMAP C9). Pass --n_chan 2')
-    refuse_keras_ckpt(config)
 
 
 def make_loss_fn(ns):
@@ -206,7 +205,7 @@ def main(argv=None) -> str:
     print(f'{type(bundle.module).__name__}: {n_params} parameters')
 
     if ns.pretrain:
-        loop.set_weights(load_weights(name, device))
+        loop.set_weights(load_weights(name, device, bundle))
         print('loaded pretrained model')
     initial_epoch = resume(config, loop)
 
@@ -217,7 +216,8 @@ def main(argv=None) -> str:
     callbacks = [
         CSVLogger(name.replace('.h5', '.log')),
         SWA(start_epoch=config.epochs // 2, swa_freq=2),
-        ModelCheckpoint(name, monitor='val_loss', verbose=1),
+        ModelCheckpoint(name, monitor='val_loss', verbose=1,
+                        keras=config.keras_ckpt),
         TerminateOnNaN(),
     ]
     if not ns.pretrain:
@@ -234,7 +234,8 @@ def main(argv=None) -> str:
              validation_iter=test_set, validation_steps=16,
              callbacks=callbacks, initial_epoch=initial_epoch)
     save_weights(name.replace('.h5', '_SWA.h5'),
-                 loop.state.module.state_dict())
+                 loop.state.module.state_dict(), keras=config.keras_ckpt,
+                 bundle=bundle)
     return name[:-len('.h5')]
 
 

@@ -19,6 +19,10 @@ The eff family's top-level names collide with vad's (its v7 ``Conv_0`` is
 the gate conv, its ``Dense_0`` the first Dense of the head), so it has
 rules of its own, chosen by the presence of ``EfficientNetBackbone_0``.
 Its ``TimeAxisResample`` kernel [T, target] keeps its layout.
+
+``state_dict_to_flax`` is the inverse: a ``state_dict`` back to the flax
+names and layouts, every leaf flax has (the Keras writer of
+``interop.keras_h5`` asserts that it maps each one).
 """
 
 from __future__ import annotations
@@ -125,4 +129,110 @@ def flax_to_state_dict(variables: Mapping) -> dict:
             key, arr = _torch_entry('/'.join(path), path[-1], arr, rules)
             out[key] = torch.from_numpy(
                 np.array(arr, dtype=np.float32, order='C'))
+    return out
+
+
+# the inverse rules: the port's module path -> flax's module path
+_INV_RULES = [
+    (r'se\.convsets\.(\d+)\.convs\.(\d+)', 'se/ConvSet_{0}/Conv_{1}'),
+    (r'se\.convsets\.(\d+)\.bns\.(\d+)',
+     'se/ConvSet_{0}/BatchNorm_{1}/BatchNorm_0'),
+    (r'se\.ups\.(\d+)\.conv', 'se/Upsampling_{0}/Conv_0'),
+    (r'se\.ups\.(\d+)\.bn', 'se/Upsampling_{0}/BatchNorm_0/BatchNorm_0'),
+    (r'se\.ups\.(\d+)\.up', 'se/Upsampling_{0}/ConvTranspose_0'),
+    (r'blocks\.(\d+)\.convs\.(\d+)', 'ConvMPBlock_{0}/Conv_{1}'),
+    (r'blocks\.(\d+)\.bns\.(\d+)',
+     'ConvMPBlock_{0}/BatchNorm_{1}/BatchNorm_0'),
+    (r'bottlenecks\.(\d+)\.convs\.(\d+)',
+     lambda b, j: f'Conv_{3 * int(b) + int(j)}'),
+    (r'bottlenecks\.(\d+)\.bns\.(\d+)',
+     lambda b, j: f'BatchNorm_{3 * int(b) + int(j)}/BatchNorm_0'),
+    (r'lstm\.cells\.(\d)\.gates\.(\w+)', 'BiLSTM_0/OptimizedLSTMCell_{0}/{1}'),
+    (r'gru\.cells\.(\d)\.gates\.(\w+)', 'BiGRU_0/GRUCell_{0}/{1}'),
+    (r'td', 'Dense_0'),
+    (r'fcs\.(\d+)\.dense', 'FullyConnectedLayer_{0}/Dense_0'),
+    (r'fcs\.(\d+)\.bn', 'FullyConnectedLayer_{0}/BatchNorm_0/BatchNorm_0'),
+]
+_INV_EFF_RULES = [
+    (r'backbone\.stem', 'EfficientNetBackbone_0/Conv_0'),
+    (r'backbone\.stem_bn', 'EfficientNetBackbone_0/BatchNorm_0/BatchNorm_0'),
+    (r'backbone\.head', 'EfficientNetBackbone_0/Conv_1'),
+    (r'backbone\.head_bn', 'EfficientNetBackbone_0/BatchNorm_1/BatchNorm_0'),
+    (r'backbone\.blocks\.(\d+)\.convs\.(\d+)',
+     'EfficientNetBackbone_0/MBConv_{0}/Conv_{1}'),
+    (r'backbone\.blocks\.(\d+)\.bns\.(\d+)',
+     'EfficientNetBackbone_0/MBConv_{0}/BatchNorm_{1}/BatchNorm_0'),
+    (r'denses\.(\d+)', 'Dense_{0}'),
+    (r'bns\.(\d+)', 'BatchNorm_{0}/BatchNorm_0'),
+    (r'ups\.(\d+)', 'ConvTranspose_{0}'),
+    (r'resample', 'TimeAxisResample_0'),
+    (r'gru\.cells\.(\d)\.gates\.(\w+)', 'BiGRU_0/GRUCell_{0}/{1}'),
+    (r'gate', 'Conv_0'),
+    (r'fcs\.(\d+)\.dense', 'FullyConnectedLayer_{0}/Dense_0'),
+    (r'fcs\.(\d+)\.bn', 'FullyConnectedLayer_{0}/BatchNorm_0/BatchNorm_0'),
+]
+_INV_BN = {v: k for k, v in _BN.items()}
+
+
+def _flax_entry(key: str, arr: np.ndarray, rules):
+    """(collection, flax path, array in flax's layout) of one ``state_dict``
+    entry: the inverse of :func:`_torch_entry`."""
+    module, _, leaf = key.rpartition('.')
+    prefix = ''
+    if module.startswith('vad.'):               # the se cascade's head
+        prefix, module = 'vad/', module[len('vad.'):]
+    for pattern, target in rules:
+        m = re.fullmatch(pattern, module)
+        if m is None:
+            continue
+        path = prefix + (target(*m.groups()) if callable(target)
+                         else target.format(*m.groups()))
+        if 'BatchNorm' in path:
+            name = _INV_BN[leaf]
+            return ('batch_stats' if name in ('mean', 'var') else 'params',
+                    f'{path}/{name}', arr)
+        if leaf == 'weight':
+            nd = arr.ndim
+            window = tuple(range(2, nd))
+            if 'ConvTranspose' in path:      # [in, out, *window], flipped
+                arr = np.flip(arr.transpose(*window, 0, 1),
+                              tuple(range(nd - 2)))
+            elif 'TimeAxisResample' not in path:
+                arr = arr.transpose(*window, 1, 0)
+            return 'params', f'{path}/kernel', arr
+        return 'params', f'{path}/{leaf}', arr
+    raise KeyError(f'no flax counterpart for state_dict entry {key!r}')
+
+
+def flax_shapes(module, config) -> dict:
+    """Each flax leaf's shape, by its 'collection/A/B/leaf' path, for
+    ``module``'s ``state_dict`` (no weight leaves the device)."""
+    rules = _INV_EFF_RULES if config.model_type == 'eff' else _INV_RULES
+    out = {}
+    for key, value in module.state_dict().items():
+        # an untouched np.empty: only the views' shapes are read
+        coll, path, arr = _flax_entry(
+            key, np.empty(tuple(value.shape), np.float32), rules)
+        out[f'{coll}/{path}'] = arr.shape
+    return out
+
+
+def state_dict_to_flax(module_or_state_dict, config) -> dict:
+    """The flax variables ``{'params': ..., 'batch_stats': ...}`` (nested
+    dicts of float32 numpy arrays) that :func:`flax_to_state_dict` maps to
+    ``module_or_state_dict`` (an ``nn.Module`` or its ``state_dict``), by
+    the rules of ``config.model_type``'s family."""
+    sd = module_or_state_dict
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
+    rules = _INV_EFF_RULES if config.model_type == 'eff' else _INV_RULES
+    out = {'params': {}, 'batch_stats': {}}
+    for key, value in sd.items():
+        arr = value.detach().cpu().float().numpy()
+        coll, path, arr = _flax_entry(key, arr, rules)
+        node = out[coll]
+        *parents, leaf = path.split('/')
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
     return out

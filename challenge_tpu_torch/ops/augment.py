@@ -36,6 +36,25 @@ def merge_factors(gen: torch.Generator, b: int, number: int):
     return 0.1 + 0.8 * u
 
 
+def merge_factors_from_seed(seeds, number: int):
+    """Channel-merge factors [N, number - 2], float32 in [0.1, 0.9), as a
+    function of int seeds [N]: each (seed, column) pair is hashed in int64
+    tensor ops (two xor-shift-multiply rounds of a 32-bit integer hash) and
+    its top 24 bits scaled into the range. Eval's n_chan > 3 map takes the
+    factors of clip ``i`` from seed ``i``, on the per-clip path, on the
+    batched one and in the exported eval program alike (``torch.export``
+    traces these ops; a ``torch.Generator`` it cannot). The stream is not
+    JAX's (ROADMAP C6)."""
+    seeds = torch.as_tensor(seeds).to(torch.int64)
+    col = torch.arange(number - 2, device=seeds.device)
+    x = (seeds[:, None] * 256 + col + 0x9E3779B9) & 0xFFFFFFFF
+    for _ in range(2):
+        x = (((x >> 16) ^ x) * 0x45D9F3B) & 0xFFFFFFFF
+    x = (x >> 16) ^ x
+    u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return 0.1 + 0.8 * u
+
+
 def random_merge_aug(x, factor):
     """2 -> ``2 + factor.shape[-1]`` channels on the complex planes
     ``[re0, re1, im0, im1]`` of the last axis (augment.py:122-145;

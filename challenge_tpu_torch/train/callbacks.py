@@ -78,14 +78,16 @@ class CSVLogger(Callback):
 
 class ModelCheckpoint(Callback):
     """Save the weights whenever ``monitor`` reaches a new minimum
-    (reference: sj_train.py:492, ``save_best_only=True``)."""
+    (reference: sj_train.py:492, ``save_best_only=True``), as a Keras HDF5
+    file with ``keras=True``."""
 
     def __init__(self, filepath: str, monitor: str = 'val_loss',
-                 verbose: int = 0):
+                 verbose: int = 0, keras: bool = False):
         self.filepath = filepath
         self.monitor = monitor
         self.best = np.inf
         self.verbose = verbose
+        self.keras = keras
 
     def on_epoch_end(self, epoch, logs):
         value = logs.get(self.monitor)
@@ -93,7 +95,8 @@ class ModelCheckpoint(Callback):
             return
         self.best = value
         checkpoint.save_weights(self.filepath,
-                                self.loop.state.module.state_dict())
+                                self.loop.state.module.state_dict(),
+                                keras=self.keras, bundle=self.loop.bundle)
         if self.verbose:
             print(f'\nEpoch {epoch}: {self.monitor} improved to '
                   f'{value:.5f}, saving to {self.filepath}')
@@ -215,13 +218,15 @@ class EvalCallback(Callback):
     """Challenge eval every 5th epoch (epoch % 5 == 2): evaluate the current
     best checkpoint ``name`` on ``./*.wav`` against
     ``./sample_answer.json`` and keep the best-scoring weights as
-    ``*_sample.h5`` (reference: metrics.py:14-28). The eval runs on a copy
-    of the model, so the training module is untouched."""
+    ``*_sample.h5`` (reference: metrics.py:14-28), as a Keras HDF5 file
+    with ``keras=True``. The eval runs on a copy of the model, so the
+    training module is untouched."""
 
-    def __init__(self, config, name: str):
+    def __init__(self, config, name: str, keras: bool = False):
         self.config = config
         self.name = name
         self.score = np.inf
+        self.keras = keras
 
     def on_epoch_end(self, epoch, logs):
         if epoch % 5 != 2 or not os.path.exists(self.name):
@@ -229,7 +234,8 @@ class EvalCallback(Callback):
         from challenge_tpu_torch.evaluate.infer import evaluate
         module = self.loop.state.module
         weights = checkpoint.load_weights(self.name,
-                                          next(module.parameters()).device)
+                                          next(module.parameters()).device,
+                                          bundle=self.loop.bundle)
         model = copy.deepcopy(module)
         model.load_state_dict(weights)
         score = float(np.mean(evaluate(self.config, model, verbose=True)))
@@ -237,7 +243,8 @@ class EvalCallback(Callback):
         if score <= self.score:
             self.score = score
             checkpoint.save_weights(
-                os.path.splitext(self.name)[0] + '_sample.h5', weights)
+                os.path.splitext(self.name)[0] + '_sample.h5', weights,
+                keras=self.keras, bundle=self.loop.bundle)
 
 
 class TrainStateCheckpoint(Callback):

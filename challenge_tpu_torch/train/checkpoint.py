@@ -6,10 +6,13 @@ metrics.py:28). The port writes them as ``torch.save`` of the module's
 ``state_dict`` under those names, so the run-name grammar stays
 round-trippable; the ``.h5`` name does not make them HDF5.
 
-It does not read or write flax msgpack: a JAX-written checkpoint is decoded
-with ``flax.serialization.msgpack_restore`` where flax is installed and
-bridged with ``interop.jax_weights.flax_to_state_dict``. Keras HDF5 files
-wait for ROADMAP A15.
+With ``keras=True`` (``--keras_ckpt``) they are real Keras-2 legacy HDF5
+files instead, which the reference's ``model.load_weights`` and the JAX
+package read (``interop.keras_h5``); :func:`load_weights` tells the two
+formats apart by the HDF5 magic. It does not read or write flax msgpack: a
+JAX-written msgpack checkpoint is decoded with
+``flax.serialization.msgpack_restore`` where flax is installed and bridged
+with ``interop.jax_weights.flax_to_state_dict``.
 
 The full train state (``--ckpt_dir``, ``--resume``; counterpart:
 ``save_train_state``, ``checkpoint_steps``, ``restore_train_state``,
@@ -32,28 +35,42 @@ import torch
 _HDF5_MAGIC = b'\x89HDF\r\n\x1a\n'
 
 
-def save_weights(path: str, state_dict, keras: bool = False) -> None:
+def save_weights(path: str, state_dict, keras: bool = False,
+                 bundle=None) -> None:
     """Write ``state_dict`` (CPU copies of its tensors) to ``path`` through a
     temporary file and ``os.replace``, so a crash never leaves a torn
-    checkpoint under the final name."""
-    if keras:
-        raise NotImplementedError(
-            'Keras HDF5 checkpoints are not ported yet (ROADMAP A15)')
+    checkpoint under the final name: ``torch.save``, or with ``keras=True``
+    a Keras HDF5 file of ``bundle``'s (the ModelBundle's) layers."""
     tmp = path + '.tmp'
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
+    if keras:
+        if bundle is None:
+            raise ValueError('keras=True export needs the model bundle')
+        from challenge_tpu_torch.interop.keras_h5 import (
+            save_keras_h5_state_dict)
+        save_keras_h5_state_dict(bundle, state_dict, tmp)
+    else:
+        torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+                   tmp)
     os.replace(tmp, path)
 
 
-def load_weights(path: str, device=None) -> dict:
+def load_weights(path: str, device=None, bundle=None) -> dict:
     """The ``state_dict`` saved by :func:`save_weights`, its tensors on
-    ``device`` (default: the CPU)."""
+    ``device`` (default: the CPU). A Keras HDF5 file (told by its magic
+    bytes) goes through the Keras importer, which needs ``bundle``, the
+    ModelBundle it is read for."""
     with open(path, 'rb') as f:
         if f.read(8) == _HDF5_MAGIC:
-            raise NotImplementedError(
-                f'{path!r} is a Keras HDF5 checkpoint; reading those is not '
-                'ported yet (ROADMAP A15)')
+            if bundle is None:
+                raise ValueError(
+                    f'{path!r} is a Keras HDF5 checkpoint; pass the model '
+                    'bundle so it can be imported '
+                    '(challenge_tpu_torch.interop.keras_h5)')
+            from challenge_tpu_torch.interop.keras_h5 import (
+                load_keras_h5_state_dict)
+            return {k: v.to(device or 'cpu') for k, v in
+                    load_keras_h5_state_dict(bundle, path).items()}
     return torch.load(path, map_location=device or 'cpu', weights_only=True)
-
 
 
 # ----------------------------------------------------------- full train state

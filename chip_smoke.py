@@ -300,7 +300,28 @@ without the result line:
    epoch 3 only (21 launches) and leave the trio and a 3-row CSV; and
    ``cli.trainer.main`` at its defaults with ``--n_chan 2 --grad_accum 2
    --ckpt_dir D2`` for 2 epochs of 1 step (36 float32 launches), then
-   ``--resume True --epochs 3`` (18), resumed from step 2.
+   ``--resume True --epochs 3`` (18), resumed from step 2;
+7h. Keras checkpoints, ``torch.export`` artifacts and the batched eval,
+   in a directory of their own beside the dev set: the ``H5PY`` line
+   (h5py's version, or null; then also ``KERAS {"h5py": null}``);
+   ``cli.sj_train.main`` vad v8 on int8 banks for 8 epochs of 5 steps
+   (168 int8 launches and no other kernel, through the graphed step; 8
+   epochs, as ``get_csv_data`` below evaluates a run whose log has more
+   than ``--patience`` + 5 lines), with ``--keras_ckpt True`` where h5py
+   imports; each file of the trio made to predict events as in phase 8
+   and written back, then ``cli.eval --p`` on it (Keras files: HDF5, with
+   the ERs and grids of ``torch.save`` copies; one Keras save and load
+   timed); ``export_infer`` of full-width vad v8 and v9, reloaded
+   from bytes with the module deleted, equal to the module at batch 2 and
+   8 (a 60 s clip's windows) under cuDNN's deterministic algorithms (or
+   within 1e-5 of the peak, the gap printed), its forward timed against
+   the module's in turns; ``export_eval`` of the run's best weights, made
+   to predict events as in phase 8, whose grids equal
+   ``evaluate(batched=True)``'s and, on the valid rows, the per-clip
+   path's, with equal ERs, the three timed in turns after a warm-up
+   turn; the batched eval's peak memory per PCM byte for vad v8 and v9,
+   se v9 and eff B0 v1 and B7 v6; and ``cli.get_csv_data`` on the run's
+   directory: one row, the trio's ERs at overlap_hop 256.
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -354,7 +375,7 @@ from challenge_tpu_torch.ops.synth import (
 from challenge_tpu_torch.train import SWA, TrainStateCheckpoint
 from challenge_tpu_torch.train.checkpoint import (
     checkpoint_steps, load_weights, restore_train_state, save_train_state,
-    train_state_tensors)
+    save_weights, train_state_tensors)
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
 from challenge_tpu_torch.parallel import make_fused_train_step
 from challenge_tpu_torch.train.optim import make_optimizer
@@ -1704,6 +1725,317 @@ def stream_resume_cli_chain(d: str) -> dict:
     return res
 
 
+KERAS_EPOCHS = 8          # phase 7h: get_csv_data evaluates a log of > 5
+                          # lines past --patience 1 (its reference's rule)
+EXPORT_REPS = 20          # phase 7h: forwards timed a turn
+
+
+def record_grids(fn):
+    """``fn()`` with the 0/1 grids that ``evaluate`` scores recorded:
+    (its result, [grid, ...])."""
+    grids, orig = [], infer.get_start_end_frame
+
+    def rec(grid):
+        grids.append(np.asarray(grid))
+        return orig(grid)
+    infer.get_start_end_frame = rec
+    try:
+        return fn(), grids
+    finally:
+        infer.get_start_end_frame = orig
+
+
+def artifact_ers(fn, paths, answers):
+    """The per-clip ERs and grids of an ``export_eval`` artifact ``fn``
+    over ``paths``: PCM read on the host, one call on the card, each grid
+    cut to its clip's valid rows and scored."""
+    pcm, lens = infer._prepare_batched_pcm(paths)
+    grids = fn(torch.from_numpy(pcm).cuda(),
+               torch.from_numpy(lens).cuda()).cpu().numpy()
+    to_metric = events.output_to_metric(256, SR)
+    grids = [g[:int(n) // 256 + 1] for g, n in zip(grids, lens)]
+    ers = [events.get_er(np.asarray(answers[os.path.basename(p)[:-4]]),
+                         to_metric(*events.get_start_end_frame(g)))
+           for p, g in zip(paths, grids)]
+    return ers, grids
+
+
+def same_grids(what: str, a, b) -> None:
+    if len(a) != len(b) or any(x.shape != y.shape or not np.array_equal(x, y)
+                               for x, y in zip(a, b)):
+        raise AssertionError(f'{what}: grids differ')
+
+
+def export_infer_check(name: str, cfg) -> dict:
+    """Phase 7h(d) for one model: ``export_infer`` of ``cfg`` at full width
+    (weights from seed 7), reloaded from its bytes with the module deleted,
+    at batch 2 and at the window count of a 60 s clip, under cuDNN's
+    deterministic algorithms; then the forward of the artifact against the
+    module's, in turns."""
+    from challenge_tpu_torch.interop.aot import export_infer, load_infer
+    res = {}
+    bundle = get_model(cfg, seed=7)
+    module = bundle.module.eval()
+    n_win = -(-(60 * SR // 256 + 1) // 512)
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    xs = [torch.randn((b,) + bundle.input_shape, generator=gen,
+                      device='cuda') for b in (2, n_win)]
+    with cudnn_deterministic(), torch.no_grad():
+        want = [module(x) for x in xs]
+        t0 = time.perf_counter()
+        data = export_infer(bundle, cfg)
+        res['export_s'] = time.perf_counter() - t0
+        res['artifact_mb'] = len(data) / 1e6
+        del bundle, module
+        t0 = time.perf_counter()
+        fn = load_infer(data)
+        res['load_s'] = time.perf_counter() - t0
+        got = [fn(x) for x in xs]
+    res['batches'] = [int(x.shape[0]) for x in xs]
+    res['max_abs_gap'] = [float((g - w).abs().max()) for g, w in
+                          zip(got, want)]
+    peak = max(float(w.abs().max()) for w in want)
+    if max(res['max_abs_gap']) > 1e-5 * peak:
+        raise AssertionError(f'export_infer {name}: {res["max_abs_gap"]} '
+                             f'beyond 1e-5 of the peak {peak}')
+    res['forward_ms'], res['module_forward_ms'] = [], []
+    module = get_model(cfg, seed=7).module.eval()    # the same weights
+    with torch.no_grad():
+        for which in ('artifact', 'module', 'module', 'artifact'):
+            f = fn if which == 'artifact' else module
+            res['forward_ms' if which == 'artifact' else
+                'module_forward_ms'].append(gpu_ms(f, [(xs[1],)],
+                                                   EXPORT_REPS))
+    log(f'export_infer {name}: {json.dumps(res)}')
+    return res
+
+
+def make_it_fire(cfg, module, paths) -> None:
+    """Make ``module`` predict events on the windows of ``paths``: its BN
+    statistics set to theirs, as phase 8 does, then per class its output
+    layer shifted and scaled so that the threshold lies in the middle of
+    the widest gap between the upper half of the sorted logits and the
+    logits next to it lie ``SHARP`` from it. Phase 8 keeps a class whose
+    gap is under ``MIN_GAP`` silent; here every class fires, however
+    narrow its gap (the 768 logits of 48 windows lie close together)."""
+    x = clip_windows(cfg, module, paths)
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    momenta = [m.momentum for m in bns]
+    logits = []
+    with torch.no_grad():
+        for m in bns:
+            m.momentum = 0.0
+        module.train()(x)
+        for m, momentum in zip(bns, momenta):
+            m.momentum = momentum
+        last = module.fcs[-1].dense
+        hook = last.register_forward_hook(
+            lambda mod, args, out: logits.append(out))
+        module.eval()(x)
+        hook.remove()
+        zs = torch.sort(logits[-1].reshape(-1, last.out_features),
+                        dim=0).values
+        n = zs.shape[0]
+        gaps = zs[n // 2 + 1:] - zs[n // 2:-1]
+        k = gaps.argmax(dim=0) + n // 2
+        cols = torch.arange(zs.shape[1], device=zs.device)
+        mid = (zs[k, cols] + zs[k + 1, cols]) / 2
+        scale = 2 * SHARP / gaps.amax(dim=0).clamp(min=1e-30)
+        last.bias.copy_((last.bias - mid) * scale)
+        last.weight.mul_(scale[:, None])
+
+
+def keras_export_chain(d: str) -> dict:
+    """Phase 7h, in ``d/keras7h`` (the dev set linked in from ``d``, the
+    spec sets read from ``d``): h5py's status; ``cli.sj_train`` vad v8 on
+    int8 banks through the graphed step, with ``--keras_ckpt True`` where
+    h5py imports (its Keras trio then read back by ``cli.eval`` against
+    ``torch.save`` copies, one Keras save and load timed); ``export_infer``
+    of vad v8 and v9; ``export_eval`` of the run's best weights, made to
+    fire, against ``evaluate(batched=True)`` and the per-clip path, each
+    timed; the batched eval's peak memory per family; then
+    ``cli.get_csv_data`` on the run."""
+    from challenge_tpu_torch.cli import get_csv_data
+    from challenge_tpu_torch.interop.aot import export_eval, load_infer
+    start = time.perf_counter()
+    res = {}
+    try:
+        import h5py
+        res['h5py'] = h5py.__version__
+    except ImportError:
+        res['h5py'] = None
+    log('H5PY ' + json.dumps({'h5py': res['h5py']}))
+    if res['h5py'] is None:
+        log('KERAS ' + json.dumps({'h5py': None}))
+    sub = os.path.join(d, 'keras7h')
+    os.makedirs(sub)
+    with open(os.path.join(d, 'sample_answer.json')) as f:
+        answers = json.load(f)['task2_answer']
+    for name in os.listdir(d):
+        if name.endswith('.wav') or name == 'sample_answer.json':
+            os.symlink(os.path.join(d, name), os.path.join(sub, name))
+    paths = sorted(p for p in os.listdir(sub) if p.endswith('.wav'))
+    cwd = os.getcwd()
+    os.chdir(sub)
+    try:
+        cfg = Config(model_type='vad', v=8)
+        batches = KERAS_EPOCHS * (CLI_STEPS + CLI_VAL_STEPS)
+        keras = ['--keras_ckpt', 'True'] if res['h5py'] else []
+        run, counts, res['keras_cli_s'] = run_cli(
+            ['--model_type', 'vad', '--v', '8', '--n_chan', '2',
+             '--datapath', d, '--name', 'keras7h', '--bank_dtype', 'int8',
+             '--epochs', str(KERAS_EPOCHS), '--steps_per_epoch',
+             str(CLI_STEPS)] + keras, 'synth_mag_int8', batches)
+        if {k for k, v in counts.items() if v} != {'synth_mag_int8'}:
+            raise AssertionError(f'7h launches: {counts}')
+        res['keras_launches'], res['keras_batches'] = counts, batches
+        res.update(trio_check(run, paths, bool(keras)))
+        for name, c in (('vad_v8', cfg), ('vad_v9', Config(model_type='vad',
+                                                            v=9))):
+            res[f'export_{name}'] = export_infer_check(name, c)
+        # (e) the eval chain over the 6 x 60 s dev set
+        bundle = get_model(cfg)
+        module = bundle.module
+        module.load_state_dict(load_weights(run + '.h5', 'cuda', bundle))
+        make_it_fire(cfg, module, paths)
+        lens, chan = infer._wav_headers(paths)
+        t0 = time.perf_counter()
+        data = export_eval(bundle, cfg, s_max=int(lens.max()),
+                           wav_channels=chan)
+        res['export_eval_s'] = time.perf_counter() - t0
+        res['export_eval_mb'] = len(data) / 1e6
+        fn = load_infer(data)
+        runs = {
+            'per_clip': lambda: record_grids(lambda: infer.evaluate(
+                cfg, module, batched=False)),
+            'batched': lambda: record_grids(lambda: infer.evaluate(
+                cfg, module)),
+            'artifact': lambda: artifact_ers(fn, paths, answers)}
+        out, res['eval_s'] = {}, {k: [] for k in runs}
+        for which in ('per_clip', 'batched', 'artifact', 'per_clip',
+                      'batched', 'artifact', 'artifact', 'batched',
+                      'per_clip'):            # a warm-up turn, then timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[which] = runs[which]()
+            torch.cuda.synchronize()
+            res['eval_s'][which].append(time.perf_counter() - t0)
+        res['eval_warmup_s'] = {k: v.pop(0) for k, v in res['eval_s'].items()}
+        for which in ('batched', 'artifact'):
+            same_grids(f'{which} vs per-clip', out[which][1],
+                       out['per_clip'][1])
+            if out[which][0] != out['per_clip'][0]:
+                raise AssertionError(f'{which} ERs {out[which][0]}')
+        grids = out['per_clip'][1]
+        res['eval_frames_on'] = sum(int(g.sum()) for g in grids) / sum(
+            g.size for g in grids)
+        if not 0 < res['eval_frames_on'] < 1:
+            raise AssertionError('7h(e): degenerate grids')
+        res['eval_ers'] = out['per_clip'][0]
+        log('7h eval: ' + json.dumps({k: res[k] for k in (
+            'eval_s', 'eval_warmup_s', 'eval_ers', 'eval_frames_on',
+            'export_eval_s', 'export_eval_mb')}))
+        del fn, bundle, module
+        res.update(batched_peaks(paths))
+        # (f) get_csv_data over the run's directory: one row, the trio's
+        # ERs at its overlap_hop of framelen // 2
+        rows = get_csv_data.main(argv=['--path', sub, '--patience', '1'])
+        want = [float(np.mean(res['ers_hop256'][s]))
+                for s in ('', '_SWA', '_sample')]
+        got = [float(x) for x in rows[1][-3:]] if len(rows) == 2 else []
+        if len(rows) != 2 or rows[1][0] != run or got != want or \
+                not all(map(math.isfinite, got)):
+            raise AssertionError(f'get_csv_data rows {rows}, want {want}')
+        res['csv_ers'] = got
+    finally:
+        os.chdir(cwd)
+    res['keras_7h_s'] = time.perf_counter() - start
+    log(f'phase 7h: {res["keras_7h_s"]:.3f} s')
+    return res
+
+
+def trio_check(run: str, paths, keras: bool) -> dict:
+    """Phase 7h(c): each file of the trio is first made to predict events
+    (:func:`make_it_fire`; a few steps leave the model silent) and written
+    back in its format; then ``cli.eval --p`` on it. Keras files
+    (``keras``) must be HDF5 and give the ERs and grids of a
+    ``torch.save`` copy of the same weights, and one Keras save and one
+    load of the best weights are timed. The ERs at overlap_hop 256
+    (``get_csv_data``'s) are kept."""
+    res = {'ers': {}, 'ers_hop256': {}, 'frames_on': {}}
+    os.makedirs('tsave')
+    cfg = Config(model_type='vad', v=8)
+    bundle = get_model(cfg)
+    for suffix in ('', '_SWA', '_sample'):
+        path = f'{run}{suffix}.h5'
+        with open(path, 'rb') as f:
+            if (f.read(8) == b'\x89HDF\r\n\x1a\n') != keras:
+                raise AssertionError(f'{path}: HDF5 is {not keras}')
+        bundle.module.load_state_dict(load_weights(path, 'cuda', bundle))
+        make_it_fire(cfg, bundle.module, paths)
+        save_weights(path, bundle.module.state_dict(), keras=keras,
+                     bundle=bundle)
+        ers, grids = record_grids(lambda: eval_cli.main(
+            ['--name', run + suffix, '--p']))
+        res['frames_on'][suffix] = sum(int(g.sum()) for g in grids) / sum(
+            g.size for g in grids)
+        if len(ers) != len(paths) or not all(map(math.isfinite, ers)) or \
+                not 0 < res['frames_on'][suffix] < 1:
+            raise AssertionError(f'{path}: ERs {ers}, {res["frames_on"]}')
+        weights = load_weights(path, 'cuda', bundle)
+        if keras:
+            save_weights(os.path.join('tsave', path), weights)
+            plain, pg = record_grids(lambda: eval_cli.main(
+                ['--name', run + suffix, '--p', '--path', 'tsave']))
+            same_grids(f'Keras {path} vs torch.save', grids, pg)
+            if ers != plain:
+                raise AssertionError(f'{path}: ERs {ers} vs {plain}')
+        res['ers'][suffix] = ers
+        bundle.module.load_state_dict(weights)
+        res['ers_hop256'][suffix] = infer.evaluate(cfg, bundle.module,
+                                                   overlap_hop=256)
+    if keras:
+        res['keras_save_ms'], res['keras_load_ms'] = [], []
+        sd = bundle.module.state_dict()
+        for _ in range(3):
+            res['keras_save_ms'].append(wall_ms(lambda: save_weights(
+                'timed.h5', sd, keras=True, bundle=bundle), 1))
+            res['keras_load_ms'].append(wall_ms(lambda: load_weights(
+                'timed.h5', 'cuda', bundle), 1))
+        res['keras_file_mb'] = os.path.getsize('timed.h5') / 1e6
+    log(f'trio {run}: {json.dumps(res)}')
+    return res
+
+
+def batched_peaks(paths) -> dict:
+    """The batched eval's peak device memory over the corpus' PCM bytes,
+    for vad v8 and v9, se v9, eff B0 v1 and B7 v6 (random weights): what
+    ``infer.PEAK_PER_PCM_BYTE`` bounds."""
+    res = {}
+    lens, chan = infer._wav_headers(paths)
+    pcm_bytes = 2 * chan * int(lens.sum())
+    for name, cfg in (('vad_v8', Config(model_type='vad', v=8)),
+                      ('vad_v9', Config(model_type='vad', v=9)),
+                      ('se_v9', Config(model_type='se', v=9)),
+                      ('eff_b0_v1', Config(model_type='eff', v=1)),
+                      ('eff_b7_v6', Config(model_type='eff', model=7, v=6))):
+        module = get_model(cfg, seed=1).module.eval()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grids = infer.batched_grids(cfg, module, paths,
+                                    cap=pcm_bytes)     # one chunk
+        torch.cuda.synchronize()
+        if grids is None or len(grids) != len(paths):
+            raise AssertionError(f'{name}: no batched grids')
+        res[f'peak_per_pcm_byte_{name}'] = (
+            torch.cuda.max_memory_allocated() - base) / pcm_bytes
+        del module
+    res['pcm_bytes'] = pcm_bytes
+    log(f'batched eval peaks: {json.dumps(res)}')
+    return res
+
+
 def density_args(extra=()):
     """The density trainer's flags at their defaults, with ``--n_chan 2``
     (at its default 1 it refuses to train, ROADMAP C9)."""
@@ -2533,6 +2865,7 @@ def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
             res.update(density_cli_chain(d))
             res.update(bf16_cli_chain(d))
             res.update(stream_resume_cli_chain(d))
+            res['keras'] = keras_export_chain(d)
         finally:
             os.chdir(cwd)
     return res
@@ -3094,11 +3427,14 @@ def main(argv) -> int:
         **{k: cli[k] for k in ('stream_cli_s', 'sj_train_ckpt_steps',
                                'trainer_ckpt_steps', 'stream_7g_s')},
         'card': smi}))
+    keras = cli['keras']
+    log('KERAS ' + json.dumps({**{k: v for k, v in keras.items()
+                                  if k != 'keras_launches'}, 'card': smi}))
     log('CLI ' + json.dumps({k: v for k, v in cli.items()
                              if not k.endswith(('launches', 'ckpt_steps'))
                              and not k.startswith(('density', 'bf16_',
                                                    'loss_optim',
-                                                   'stream_'))}))
+                                                   'stream_', 'keras'))}))
     log(smi)
     runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
             'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
@@ -3133,6 +3469,7 @@ def main(argv) -> int:
         'density_launches': density_launches.get(name, {}).get(name, 0),
         'bf16_launches': sum(c.get(name, 0) for c in bf16_launches),
         'stream_launches': sum(c.get(name, 0) for c in stream_launches),
+        'keras_7h_launches': keras.get('keras_launches', {}).get(name, 0),
         'max_abs_err': max(errs[name].values()),
         **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {

@@ -24,8 +24,8 @@ are fed to the port. Tolerances:
   (tests/test_pallas_synth.py:561-620). Measured: at most 3.8e-3
   relative, mean 7.0e-4; log-mel at most 5.1e-3, mean 2.9e-4;
 * ``evaluate()``: grids and ERs identical to JAX's for n_chan 1 and 3, and
-  for n_chan 4 with JAX's per-clip merge factors injected (the port draws
-  its own from a generator seeded with the clip index, ROADMAP C).
+  for n_chan 4 with JAX's per-clip merge factors injected (the port's own
+  are ``merge_factors_from_seed`` of the clip index, ROADMAP C6).
 """
 
 import functools
@@ -289,12 +289,11 @@ def test_evaluate_grids_and_ers_equal_jax(dev_set, monkeypatch, n_chan):
     pm = VADModel(v=3, base_fsize=8, td_dim=32, n_mels=N_MELS, n_chan=n_chan)
     pm.load_state_dict(flax_to_state_dict(variables))
 
-    def jax_factor(gen, b, number):
-        key = jax.random.fold_in(jax.random.PRNGKey(0), gen.initial_seed())
-        f = jax.random.uniform(key, (1, 1, number - 2), minval=0.1,
-                               maxval=0.9)
-        return torch.from_numpy(np.asarray(f).reshape(b, number - 2))
-    monkeypatch.setattr(infer, 'merge_factors', jax_factor)
+    def jax_factor(seeds, number):
+        return torch.stack([torch.from_numpy(np.array(jax.random.uniform(
+            jax.random.fold_in(jax.random.PRNGKey(0), int(s)),
+            (number - 2,), minval=0.1, maxval=0.9))) for s in seeds])
+    monkeypatch.setattr(infer, 'merge_factors_from_seed', jax_factor)
     grids = record_grids(monkeypatch, infer)
     ers = infer.evaluate(Config(**cfg), pm, overlap_hop=32,
                          eval_dir=str(dev_set))
@@ -307,15 +306,16 @@ def test_evaluate_grids_and_ers_equal_jax(dev_set, monkeypatch, n_chan):
 
 
 def test_eval_merge_is_fresh_per_clip_and_deterministic():
-    """The port's own n_chan > 3 eval merge: a factor per clip index from a
-    CPU generator, the same on every call and device."""
+    """The port's own n_chan > 3 eval merge: a factor per clip index from
+    ``merge_factors_from_seed`` (tensor ops, which the exported eval
+    program traces), the same on every call and device."""
     spec = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (257, 9, 4)).astype(np.float32))
     cfg = Config(n_chan=4)
     a, b = (infer.channel_map(cfg, spec, i) for i in (0, 1))
     assert a.shape == (257, 9, 8) and not torch.equal(a, b)
     assert torch.equal(a, infer.channel_map(cfg, spec, 0))
-    f = augment.merge_factors(torch.Generator().manual_seed(1), 1, 4)[0]
+    f = augment.merge_factors_from_seed(torch.tensor([1]), 4)[0]
     torch.testing.assert_close(b, augment.random_merge_aug(spec, f),
                                rtol=0, atol=0)
     assert torch.equal(infer.channel_map(Config(n_chan=1), spec, 0), spec)

@@ -12,6 +12,7 @@ port's own checkpoints round-trip exactly.
 """
 
 import csv
+import dataclasses
 import json
 import sys
 import types
@@ -22,7 +23,8 @@ import pytest
 import torch
 
 from _helpers import DATA_FLAGS, make_datafiles, write_wav
-from _torch_parity import N_FRAME, N_MELS, small_sources, vad_variables
+from _torch_parity import (
+    N_FRAME, N_MELS, shape_bundle, small_sources, vad_variables)
 from challenge_tpu import config as jconfig
 from challenge_tpu.train import callbacks as jcb
 from challenge_tpu.train import optim as joptim
@@ -84,14 +86,48 @@ def test_sj_train_then_eval_cli_on_the_cpu(tmp_path, monkeypatch, capsys,
     assert len(ers) == 1 and np.isfinite(ers[0])
 
 
+def _jax_reads_the_trio(jb, stems, pb):
+    """Each of the files ``stems`` is a Keras HDF5 file that JAX's
+    ``load_weights(..., bundle=)`` reads to the state_dict the port's
+    ``load_weights`` reads, exactly."""
+    from challenge_tpu.train import checkpoint as jckpt
+    for stem in stems:
+        with open(stem, 'rb') as f:
+            assert f.read(8) == checkpoint._HDF5_MAGIC, stem
+        ref = flax_to_state_dict(jax.device_get(
+            jckpt.load_weights(stem, None, bundle=shape_bundle(jb))))
+        got = checkpoint.load_weights(stem, 'cpu', pb)
+        assert got.keys() == ref.keys() == pb.module.state_dict().keys()
+        assert all(torch.equal(got[k], ref[k]) for k in ref), stem
+
+
 @pytest.mark.parametrize('flag', [['--keras_ckpt', 'True'],
                                   ['--bank_shard', 'True']])
 def test_sj_train_refuses_unported_flags(tmp_path, monkeypatch, flag):
-    """``--keras_ckpt`` (ROADMAP A15); ``--bank_shard`` where two devices
-    divide the batch, so JAX would shard the banks over a mesh (ROADMAP
-    A14, C14)."""
+    """``--bank_shard`` where two devices divide the batch, so JAX would
+    shard the banks over a mesh (ROADMAP A14, C14). ``--keras_ckpt``, once
+    refused here (A15), now trains: 3 epochs of 2 steps on int8 banks and
+    32 mels
+    write {run}.h5, _SWA.h5 and, from the eval callback at epoch 2,
+    _sample.h5 as Keras HDF5 files that JAX reads."""
     monkeypatch.chdir(tmp_path)
     make_datafiles(tmp_path)
+    if flag[0] == '--keras_ckpt':
+        from challenge_tpu.models import get_model as jget_model
+        from challenge_tpu_torch.models.registry import get_model
+        monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
+        write_wav(tmp_path / 'clip01.wav', seconds=4.0, seed=1, tone_hz=440)
+        with open(tmp_path / 'sample_answer.json', 'w') as f:
+            json.dump({'task2_answer': {'clip01': [[0, 1.0, 2.0]]}}, f)
+        argv = ARGV + DATA_FLAGS + ['--bank_dtype', 'int8', '--n_mels',
+                                    '32'] + flag
+        run = sj_train.main(argv + ['--device', 'cpu'])
+        jcfg = jconfig.config_from_args(argv)
+        _jax_reads_the_trio(
+            jget_model(jcfg), [f'{run}{s}.h5' for s in ('', '_SWA',
+                                                       '_sample')],
+            get_model(Config(**dataclasses.asdict(jcfg)), device='cpu'))
+        return
     monkeypatch.setattr(mesh, 'device_count', lambda device: 2)
     with pytest.raises(NotImplementedError, match='ROADMAP A1[45]'):
         sj_train.main(ARGV + DATA_FLAGS + flag + ['--device', 'cpu'])
@@ -189,10 +225,84 @@ def test_clis_follow_the_device_policy(tmp_path, monkeypatch, capsys, cli,
         assert expect in out
 
 
-def test_eval_cli_refuses_aot_export():
-    with pytest.raises(NotImplementedError, match='ROADMAP A15'):
-        eval_cli.main(['--name', 'x', '--export_aot', 'a', '--device',
-                       'cpu'])
+EVAL_RUN = 'vad_v3_lr0.001_batch2_opt_adam_mel32_chan2_BCE_framelen512'
+
+
+def _eval_run_dir(d, seconds=(2.0, 2.5)):
+    """A directory with the Keras checkpoint of ``EVAL_RUN`` (vad v3, 32
+    mels x 512 frames, weights from seed 3) and a dev set; returns the
+    bundle."""
+    from challenge_tpu_torch.models.registry import get_model
+    bundle = get_model(Config(model_type='vad', v=3, n_mels=32, n_frame=512,
+                              n_chan=2), device='cpu', seed=3)
+    checkpoint.save_weights(str(d / f'{EVAL_RUN}.h5'),
+                            bundle.module.state_dict(), keras=True,
+                            bundle=bundle)
+    answers = {}
+    for i, secs in enumerate(seconds):
+        write_wav(d / f'clip{i}.wav', seconds=secs, seed=i, tone_hz=440)
+        answers[f'clip{i}'] = [[0, 0.2, 0.8]]
+    with open(d / 'sample_answer.json', 'w') as f:
+        json.dump({'task2_answer': answers}, f)
+    return bundle
+
+
+def test_eval_cli_refuses_aot_export(tmp_path, monkeypatch):
+    """``--export_aot``, once refused (A15): the eval CLI reads the Keras
+    checkpoint, scores the dev set and writes a ``torch.export`` artifact
+    that, loaded without the model, gives the model's outputs."""
+    from challenge_tpu_torch.interop.aot import load_infer
+    monkeypatch.chdir(tmp_path)
+    bundle = _eval_run_dir(tmp_path)
+    ers = eval_cli.main(['--name', EVAL_RUN, '--p', '--export_aot',
+                         'serve.pt2', '--device', 'cpu'])
+    assert len(ers) == 2 and all(np.isfinite(ers))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2,) + bundle.input_shape).astype(np.float32))
+    with torch.no_grad():
+        want = bundle.module.eval()(x)
+    assert torch.equal(load_infer('serve.pt2')(x), want)
+
+
+def test_eval_cli_export_aot_eval(tmp_path, monkeypatch):
+    """``--export_aot_eval``: the eval chain sized to the corpus in the
+    working directory; its grids, cut to each clip's valid rows and scored,
+    give the CLI's ERs."""
+    from challenge_tpu_torch.evaluate import events
+    from challenge_tpu_torch.evaluate.infer import _prepare_batched_pcm
+    from challenge_tpu_torch.interop.aot import load_infer
+    monkeypatch.chdir(tmp_path)
+    _eval_run_dir(tmp_path)
+    ers = eval_cli.main(['--name', EVAL_RUN, '--p', '--export_aot_eval',
+                         'chain.pt2', '--device', 'cpu'])
+    pcm, lens = _prepare_batched_pcm(['clip0.wav', 'clip1.wav'])
+    grids = load_infer('chain.pt2')(torch.from_numpy(pcm),
+                                    torch.from_numpy(lens)).numpy()
+    to_metric = events.output_to_metric(256, 16000)
+    got = [events.get_er(np.array([[0, 0.2, 0.8]]), to_metric(
+        *events.get_start_end_frame(g[:int(n) // 256 + 1])))
+        for g, n in zip(grids, lens)]
+    assert got == ers
+
+
+def test_eval_cli_export_aot_eval_needs_a_uniform_corpus(tmp_path,
+                                                         monkeypatch):
+    """JAX's checks and messages: no ``*.wav`` in the working directory,
+    or WAVs of mixed rates, raise before anything is exported."""
+    monkeypatch.chdir(tmp_path)
+    _eval_run_dir(tmp_path)
+    argv = ['--name', EVAL_RUN, '--p', '--export_aot_eval', 'chain.pt2']
+    empty = tmp_path / 'empty'
+    empty.mkdir()
+    monkeypatch.chdir(empty)
+    with pytest.raises(ValueError, match='no \\*.wav files here'):
+        eval_cli.main(argv + ['--path', str(tmp_path), '--device', 'cpu'])
+    monkeypatch.chdir(tmp_path)
+    write_wav(tmp_path / 'clip9.wav', seconds=1.0, sr=8000, seed=9)
+    with pytest.raises(ValueError, match='mixed-format') as err:
+        eval_cli.main(argv + ['--device', 'cpu'])
+    assert 'the 3 *.wav files here are mixed-format' in str(err.value)
+    assert not (tmp_path / 'chain.pt2').exists()
 
 
 # ------------------------------------------------------------- callbacks
@@ -387,6 +497,10 @@ def test_jax_msgpack_checkpoint_bridges_to_the_same_forward(tmp_path):
 
 
 def test_port_checkpoint_round_trips_exactly(tmp_path):
+    """``torch.save`` and, with ``keras=True`` and the bundle, Keras HDF5
+    (once refused, A15): both round-trip exactly through ``load_weights``,
+    which tells them apart by the HDF5 magic and needs the bundle for the
+    second."""
     pm = VADModel(v=8, base_fsize=8, td_dim=32, n_mels=N_MELS)
     pm.reset_parameters(torch.Generator().manual_seed(3))
     path = str(tmp_path / 'run_SWA.h5')
@@ -395,11 +509,20 @@ def test_port_checkpoint_round_trips_exactly(tmp_path):
     assert set(back) == set(pm.state_dict())
     assert all(torch.equal(back[k], v) for k, v in pm.state_dict().items())
     assert not (tmp_path / 'run_SWA.h5.tmp').exists()
-    with pytest.raises(NotImplementedError, match='ROADMAP A15'):
-        checkpoint.save_weights(path, pm.state_dict(), keras=True)
-    (tmp_path / 'k.h5').write_bytes(b'\x89HDF\r\n\x1a\n' + b'\0' * 8)
-    with pytest.raises(NotImplementedError, match='ROADMAP A15'):
-        checkpoint.load_weights(str(tmp_path / 'k.h5'))
+    bundle = ModelBundle(pm, (N_MELS, N_FRAME, 2),
+                         Config(model_type='vad', v=8, n_mels=N_MELS,
+                                n_frame=N_FRAME), torch.device('cpu'))
+    kpath = str(tmp_path / 'k.h5')
+    with pytest.raises(ValueError, match='bundle'):
+        checkpoint.save_weights(kpath, pm.state_dict(), keras=True)
+    checkpoint.save_weights(kpath, pm.state_dict(), keras=True,
+                            bundle=bundle)
+    assert not (tmp_path / 'k.h5.tmp').exists()
+    back = checkpoint.load_weights(kpath, 'cpu', bundle)
+    assert set(back) == set(pm.state_dict())
+    assert all(torch.equal(back[k], v) for k, v in pm.state_dict().items())
+    with pytest.raises(ValueError, match='Keras HDF5.*bundle'):
+        checkpoint.load_weights(kpath)
 
 
 # ------------------------------------------------------ the density trainer
@@ -524,11 +647,26 @@ def test_trainer_refuses_n_chan_but_2(n_chan):
 @pytest.mark.parametrize('flag,item', [
     (['--n_devices', '2'], 'A14'), (['--bank_shard', 'True'], 'A14'),
     (['--keras_ckpt', 'True'], 'A15')])
-def test_trainer_refuses_unported_flags(monkeypatch, flag, item):
+def test_trainer_refuses_unported_flags(monkeypatch, tmp_path, flag, item):
     """Each unported flag raises naming its ROADMAP item, before any data
     is read; ``--n_devices`` and ``--bank_shard`` where two devices divide
-    the default batch of 12, so JAX would build a mesh (C14)."""
+    the default batch of 12, so JAX would build a mesh (C14).
+    ``--keras_ckpt``, once refused (A15), now trains: 2 epochs of 2 steps
+    write dens.h5 and dens_SWA.h5 as Keras HDF5 files that JAX reads."""
     from challenge_tpu_torch.cli import trainer
+    if item == 'A15':
+        from challenge_tpu.models.registry import get_density_model as jdens
+        from challenge_tpu_torch.models.registry import get_density_model
+        monkeypatch.chdir(tmp_path)
+        make_datafiles(tmp_path)
+        trainer.main(DENSITY_ARGV + flag + ['--datapath', str(tmp_path),
+                                            '--device', 'cpu'] + DATA_FLAGS)
+        cfg = dict(model_type='eff', model='EfficientNetB0', n_mels=32,
+                   n_frame=64, n_chan=2)
+        _jax_reads_the_trio(jdens(jconfig.Config(**cfg)),
+                            ['dens.h5', 'dens_SWA.h5'],
+                            get_density_model(Config(**cfg), device='cpu'))
+        return
     monkeypatch.setattr(mesh, 'device_count', lambda device: 2)
     with pytest.raises(NotImplementedError,
                        match=f'{flag[0][2:]}.*ROADMAP {item}'):
