@@ -15,8 +15,14 @@ card, eager with ``--device cpu``; ``--steps_per_call``, ``--grad_accum``
 and ``--remat`` shape that step as they shape JAX's.
 
 ``--n_devices`` and ``--bank_shard`` follow JAX's device policy
-(``parallel.mesh.devices_for_config``): on one device the run trains
-single-device; a data-parallel mesh raises (ROADMAP A14).
+(``parallel.mesh.mesh_for_config``): where more than one card is visible
+and the global batch divides them, the run trains over a data-parallel
+mesh, one process a card (``parallel.launch``: this process is rank 0 and
+starts the others, which meet through a rendezvous file in the working
+directory; under ``torchrun`` each process joins its ranks instead).
+Every rank trains on its share of each batch; rank 0 writes the files.
+``--bank_shard`` builds the banks on the host and gives each rank only
+its block of their clip axis.
 ``--stream_chunks N`` (N >= 2) rotates the training spec set through the
 card in N chunks, ``--chunk_steps`` dispatches each
 (``data.streaming``). ``--ckpt_dir`` saves the full train state every
@@ -44,7 +50,9 @@ from challenge_tpu_torch.data.pipeline import build_banks
 from challenge_tpu_torch.data.streaming import build_streaming_banks
 from challenge_tpu_torch.device import resolve_device
 from challenge_tpu_torch.models.registry import get_model
-from challenge_tpu_torch.parallel.mesh import devices_for_config
+from challenge_tpu_torch.parallel import launch
+from challenge_tpu_torch.parallel.mesh import (
+    current, is_writer, mesh_for_config)
 from challenge_tpu_torch.train import (
     NO_SWA_ERROR, SWA, CSVLogger, EarlyStopping, EvalCallback,
     LearningRateScheduler, ModelCheckpoint, TensorBoard, TerminateOnNaN,
@@ -118,15 +126,34 @@ def main(argv=None) -> str:
         config.mse_multiplier = 1
     print(config)
     device = resolve_device(config.extra_args['device'])
-    devices_for_config(config, device)
+    mesh = mesh_for_config(config, device)
+    if mesh is not None:
+        print(f'data-parallel mesh over {mesh.size} devices'
+              + (' (banks sharded)' if config.bank_shard else ''))
+        if not mesh.joined:
+            return launch.run('challenge_tpu_torch.cli.sj_train:train',
+                              (config,), mesh.devices, workdir='.')[0]
+    return train(config, device, mesh)
 
+
+def train(config: Config, device=None, mesh=None) -> str:
+    """The training run of ``config`` on ``device``, or as a rank of
+    ``mesh`` (default: the mesh this process is a rank of); returns the
+    run name."""
+    mesh = mesh if mesh is not None else current()
+    if mesh is not None:
+        device = mesh.device
     name = config.run_name()
     name = name if name.endswith('.h5') else name + '.h5'
 
     bundle = get_model(config, device=device)
+    # --bank_shard on a mesh: built on the host, only each rank's block
+    # goes to its card (cli/sj_train.py:57-64)
+    bank_device = 'cpu' if mesh is not None and config.bank_shard else device
     loop = TrainLoop(bundle, seed=config.seed,
-                     banks=make_banks(config, True, device=device),
-                     val_banks=make_banks(config, False, device=device))
+                     banks=make_banks(config, True, device=bank_device),
+                     val_banks=make_banks(config, False, device=bank_device),
+                     mesh=mesh)
     n_params = sum(p.numel() for p in bundle.module.parameters())
     print(f'{type(bundle.module).__name__}: {n_params} parameters')
     print(name)
@@ -160,9 +187,10 @@ def main(argv=None) -> str:
                  validation_steps=16, callbacks=callbacks,
                  initial_epoch=initial_epoch)
         print('best model:', name.replace('.h5', '_SWA.h5'))
-        save_weights(name.replace('.h5', '_SWA.h5'),
-                     loop.state.module.state_dict(), keras=config.keras_ckpt,
-                     bundle=bundle)
+        if is_writer():
+            save_weights(name.replace('.h5', '_SWA.h5'),
+                         loop.state.module.state_dict(),
+                         keras=config.keras_ckpt, bundle=bundle)
     except NO_SWA_ERROR:
         pass
     print(name.split('.h5')[0])

@@ -18,13 +18,14 @@ plateaus of the training loss. The SWA average is written to
 ``{name}_SWA.h5``; a run too short to fold SWA raises ``NO_SWA_ERROR``,
 as JAX's does.
 
-With ``--grad_accum`` > 1 or ``--stream_chunks`` >= 2 the run trains in
-banks mode, the fused step over the density batches
+On a data-parallel mesh, or with ``--grad_accum`` > 1 or
+``--stream_chunks`` >= 2, the run trains in banks mode, the fused step over the density batches
 (``TrainLoop(variant='density')``), on resident banks or on a rotation of
 host chunks, as JAX's does (cli/trainer.py:175-192); otherwise it trains
 from the reference's batch iterators, where ``--steps_per_call`` does not
 apply. ``--remat`` rematerialises the forward in either mode.
-``--n_devices`` and ``--bank_shard`` follow JAX's device policy, and
+``--n_devices`` and ``--bank_shard`` follow JAX's device policy and
+train over a mesh as ``cli.sj_train`` does, and
 ``--ckpt_dir``, ``--ckpt_every_epochs`` and ``--resume`` save and restore
 the full train state, as for ``cli.sj_train``. A resumed iterator-mode run
 draws its batches from a pipeline started anew at the seed, as JAX's
@@ -48,7 +49,9 @@ from challenge_tpu_torch.config import Config, str2bool
 from challenge_tpu_torch.data.pipeline import DevicePipeline
 from challenge_tpu_torch.device import resolve_device
 from challenge_tpu_torch.models.registry import get_density_model
-from challenge_tpu_torch.parallel.mesh import devices_for_config
+from challenge_tpu_torch.parallel import launch
+from challenge_tpu_torch.parallel.mesh import (
+    current, is_writer, mesh_for_config)
 from challenge_tpu_torch.train import (
     SWA, CSVLogger, LearningRateScheduler, ModelCheckpoint, ReduceLROnPlateau,
     TerminateOnNaN, TrainLoop, TrainStateCheckpoint, custom_scheduler,
@@ -186,19 +189,41 @@ def main(argv=None) -> str:
     refuse_unported(config)
     print(config)
     device = resolve_device(ns.device)
-    devices_for_config(config, device)
+    mesh = mesh_for_config(config, device)
+    if mesh is not None:
+        print(f'data-parallel mesh over {mesh.size} devices'
+              + (' (banks sharded)' if config.bank_shard else ''))
+        if not mesh.joined:
+            return launch.run('challenge_tpu_torch.cli.trainer:train',
+                              (ns,), mesh.devices, workdir='.')[0]
+    return train(ns, device, mesh)
+
+
+def train(ns, device=None, mesh=None) -> str:
+    """The training run of the parsed flags ``ns`` on ``device``, or as a
+    rank of ``mesh`` (default: the mesh this process is a rank of);
+    returns the run name."""
+    config = to_config(ns)
+    mesh = mesh if mesh is not None else current()
+    if mesh is not None:
+        device = mesh.device
     name = ns.name if ns.name.endswith('.h5') else ns.name + '.h5'
 
     bundle = get_density_model(config, device=device, seed=config.seed)
-    # the chunk rotation and gradient accumulation ride the fused step, so
-    # they train in banks mode (cli/trainer.py:175-192)
-    fused = config.stream_chunks >= 2 or config.grad_accum > 1
+    # a mesh, the chunk rotation and gradient accumulation ride the fused
+    # step, so they train in banks mode (cli/trainer.py:170-192); under
+    # --bank_shard on a mesh the banks are built on the host and each rank
+    # takes its block (cli/trainer.py:135-141)
+    fused = (mesh is not None or config.stream_chunks >= 2
+             or config.grad_accum > 1)
+    bank_device = 'cpu' if mesh is not None and config.bank_shard else device
     if fused:
         loop = TrainLoop(
             bundle, seed=config.seed, loss_fn=make_loss_fn(ns),
             variant='density',
-            banks=make_banks(config, True, ns.n_classes, device),
-            val_banks=make_banks(config, False, ns.n_classes, device))
+            banks=make_banks(config, True, ns.n_classes, bank_device),
+            val_banks=make_banks(config, False, ns.n_classes, bank_device),
+            mesh=mesh)
     else:
         loop = TrainLoop(bundle, seed=config.seed, loss_fn=make_loss_fn(ns))
     n_params = sum(p.numel() for p in bundle.module.parameters())
@@ -233,9 +258,10 @@ def main(argv=None) -> str:
              steps_per_epoch=config.steps_per_epoch,
              validation_iter=test_set, validation_steps=16,
              callbacks=callbacks, initial_epoch=initial_epoch)
-    save_weights(name.replace('.h5', '_SWA.h5'),
-                 loop.state.module.state_dict(), keras=config.keras_ckpt,
-                 bundle=bundle)
+    if is_writer():
+        save_weights(name.replace('.h5', '_SWA.h5'),
+                     loop.state.module.state_dict(),
+                     keras=config.keras_ckpt, bundle=bundle)
     return name[:-len('.h5')]
 
 

@@ -59,7 +59,7 @@ def _pad_flat_rows(bank: SpecBank, t_flat: int) -> SpecBank:
     return dataclasses.replace(bank, flat=torch.cat([flat, pad], 1))
 
 
-def _map(banks: Banks, fn) -> Banks:
+def map_banks(banks: Banks, fn) -> Banks:
     """``banks`` with ``fn`` applied to each of its tensors."""
     def bank(b):
         if b is None:
@@ -74,7 +74,7 @@ def _map(banks: Banks, fn) -> Banks:
 def bank_tensors(banks: Banks) -> List[torch.Tensor]:
     """Every tensor of ``banks``, in a fixed order."""
     out = []
-    _map(banks, out.append)
+    map_banks(banks, out.append)
     return out
 
 
@@ -139,13 +139,23 @@ class StreamingBanks:
                  device=None):
         if not chunks:
             raise ValueError('no chunks')
-        self.device = resolve_device(device)
-        self.cuda = self.device.type == 'cuda'
-        self.chunks = [_map(c, torch.Tensor.pin_memory) if self.cuda else c
-                       for c in chunks]
+        self.chunks = list(chunks)
         self.chunk_steps = max(int(chunk_steps), 1)
         self._dispatches = 0
         self._idx = 0
+        self.set_placement(device)
+
+    def set_placement(self, device) -> None:
+        """Upload the chunks to ``device`` from now on (on a mesh, each
+        rank's own, every rank holding the whole rotation); drops the
+        chunks already uploaded elsewhere. The next use loads the current
+        chunk."""
+        self.device = resolve_device(device)
+        self.cuda = self.device.type == 'cuda'
+        if self.cuda:
+            self.chunks = [c if c.voices.flat.is_pinned()
+                           else map_banks(c, torch.Tensor.pin_memory)
+                           for c in self.chunks]
         self._slot = self._staged = None      # device Banks, made at first use
         self._slot_chunk = self._staged_chunk = None
         self._stream = None                   # the uploads' side stream
@@ -191,7 +201,7 @@ class StreamingBanks:
 
     # ---------------------------------------------------------- the card
     def _empty(self) -> Banks:
-        return _map(self.chunks[0],
+        return map_banks(self.chunks[0],
                     lambda t: torch.empty_like(t, device=self.device))
 
     @staticmethod

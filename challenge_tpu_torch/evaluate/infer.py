@@ -37,6 +37,14 @@ The merge factor of clip i (in sorted path order) is
 ``ops.augment.merge_factors_from_seed(i)``, a hash in tensor ops, so the
 exported program computes it too: deterministic across runs and devices,
 but not JAX's stream, which folds i into ``PRNGKey(0)`` (ROADMAP C6).
+
+``evaluate(mesh=)`` spreads the work over the ranks of a data-parallel
+mesh, every rank calling it (infer.py:124-136, 408-416, 511): the batched
+chain pads each chunk's clip count to a multiple of the mesh, each rank
+runs its block of the clips and the grids are gathered; the per-clip
+chain gives each rank a block of each clip's windows (zero windows pad
+the last block and their outputs are dropped before the overlap-add) and
+gathers the model's outputs. Every rank returns the same scores.
 Upsampling follows the version, as in JAX: v3, v6, v7, v8 and v9 repeat
 each output frame 32 times, the others are used as they come out. eff v1
 outputs every frame; eff v5 keeps its coarse n_frame * 256 // 16000
@@ -122,13 +130,37 @@ def channel_map(config, spec, clip_index=0):
     return spec
 
 
+def _class_head(config, module, x):
+    """The model's eval-mode class scores for the windows ``x``."""
+    module.eval()
+    preds = module(x.contiguous())
+    return preds[0] if config.model_type == 'se' else preds
+
+
+def _sharded_head(config, module, x, mesh):
+    """:func:`_class_head` of ``x`` with its windows split over the ranks
+    of ``mesh``: zero windows pad the last block, and their outputs are
+    dropped after the gather."""
+    if mesh is None:
+        return _class_head(config, module, x)
+    n = x.shape[0]
+    pad = (-n) % mesh.size
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    per = x.shape[0] // mesh.size
+    local = _class_head(config, module, x[mesh.rank * per:
+                                          (mesh.rank + 1) * per])
+    return mesh.all_gather(local)[:n]
+
+
 @torch.no_grad()
 def spec_to_scores(config, module, spec, overlap_hop: int = 512,
-                   clip_index: int = 0):
+                   clip_index: int = 0, mesh=None):
     """Complex spectrogram [freq, T, 4] -> smoothed class scores [T', C]
     (T' = min(T, frames the windows cover)), before the 0.5 threshold
     (counterpart: the body of ``_make_spec_to_grid``, infer.py:138-199,
-    with ``n_valid=None``). ``clip_index`` seeds the n_chan > 3 merge."""
+    with ``n_valid=None``). ``clip_index`` seeds the n_chan > 3 merge;
+    with a ``mesh`` the windows are split over its ranks."""
     spec = channel_map(config, spec, clip_index)
     n_frame = config.n_frame
     se = config.model_type == 'se'
@@ -149,10 +181,8 @@ def spec_to_scores(config, module, spec, overlap_hop: int = 512,
     windows = frame_signal(x, n_frame, overlap_hop, axis=-2)
     windows = windows.permute(1, 0, 2, 3)             # [W, mel, n_frame, chan]
     covered = (windows.shape[0] - 1) * overlap_hop + n_frame
-    module.eval()
-    preds = module(windows[..., :config.n_chan].contiguous())   # [W, T, C]
-    if se:
-        preds = preds[0]                              # the class head
+    preds = _sharded_head(config, module, windows[..., :config.n_chan],
+                          mesh)                       # [W, T, C]
     if config.v in LABEL_DOWNSAMPLE_MODELS:
         preds = torch.repeat_interleave(preds, n_frame // preds.shape[-2],
                                         dim=-2)       # UpSampling1D
@@ -165,11 +195,11 @@ def spec_to_scores(config, module, spec, overlap_hop: int = 512,
 
 
 def clip_scores(config, module, path: str, overlap_hop: int = 512,
-                clip_index: int = 0):
+                clip_index: int = 0, mesh=None):
     """The smoothed scores of one WAV file, on the module's device."""
     device = next(module.parameters()).device
     return spec_to_scores(config, module, load_wav(path, device=device),
-                          overlap_hop, clip_index)
+                          overlap_hop, clip_index, mesh)
 
 
 # ------------------------------------------------- the one-program dev set
@@ -375,11 +405,12 @@ def make_devset_infer_fn(config, module, overlap_hop: int = 512):
     return infer_all
 
 
-def _chunk_plan(paths, cap: int):
+def _chunk_plan(paths, cap: int, pad_to: int = 1):
     """([chunk of paths, ...], clips a chunk is padded to, forced row
-    length) for the batched path (infer.py:519-534), or None for a corpus
+    length) for the batched path (infer.py:509-534), or None for a corpus
     that cannot take it. A corpus within ``cap`` PCM bytes is one chunk;
-    a larger one runs as equal chunks of equal row length."""
+    a larger one runs as equal chunks of equal row length. The clips a
+    chunk is padded to are a multiple of ``pad_to`` (the mesh's size)."""
     hdr = _wav_headers(paths)
     if hdr is None:
         return None
@@ -387,20 +418,24 @@ def _chunk_plan(paths, cap: int):
     s_max = int(lens.max())
     per_chunk = max(int(cap // max(chan * s_max * 2, 1)), 1)
     if per_chunk >= len(paths):
-        return [paths], 1, None
+        return [paths], pad_to, None
+    per_chunk = max(per_chunk - per_chunk % pad_to, pad_to)
     return ([paths[i:i + per_chunk] for i in range(0, len(paths), per_chunk)],
             per_chunk, s_max)
 
 
 def batched_grids(config, module, paths, overlap_hop: int = 512,
-                  cap: int = None):
+                  cap: int = None, mesh=None):
     """The grids of ``paths`` (each cut to its clip's valid rows) from the
     one-program chain, chunk by chunk, or None where the corpus or the
     model cannot take it (counterpart: the batched branch of ``evaluate``,
     infer.py:509-582). A chunk holds at most ``cap`` PCM bytes (default:
     :func:`batch_pcm_cap`); a short one is padded with constant dummy
-    clips, as in JAX, so every chunk has one shape."""
-    plan = _chunk_plan(paths, cap or batch_pcm_cap(config))
+    clips, as in JAX, so every chunk has one shape. With a ``mesh`` the
+    chunk's clips are padded to a multiple of its size, each rank runs its
+    block of them, and the grids are gathered."""
+    w = 1 if mesh is None else mesh.size
+    plan = _chunk_plan(paths, cap or batch_pcm_cap(config), w)
     if plan is None:
         return None
     chunks, clips_to, s_force = plan
@@ -419,11 +454,18 @@ def batched_grids(config, module, paths, overlap_hop: int = 512,
             lens = np.concatenate([lens, np.full((n_pad,), HOP * 4,
                                                  lens.dtype)])
         seeds = torch.arange(clip0, clip0 + len(pcm), device=device)
+        block = slice(None)
+        if mesh is not None:
+            per = len(pcm) // w
+            block = slice(mesh.rank * per, (mesh.rank + 1) * per)
         try:
-            out = infer_all(torch.from_numpy(pcm).to(device),
-                            torch.from_numpy(lens).to(device), seeds)
+            out = infer_all(torch.from_numpy(pcm[block]).to(device),
+                            torch.from_numpy(lens[block]).to(device),
+                            seeds[block])
         except BatchedEvalIneligible:
             return None
+        if mesh is not None:
+            out = mesh.all_gather(out)
         out = out.cpu().numpy()
         grids.extend(out[i, :int(s) // HOP + 1]
                      for i, s in enumerate(lens[:len(chunk)]))
@@ -432,23 +474,25 @@ def batched_grids(config, module, paths, overlap_hop: int = 512,
 
 
 def evaluate(config, module, overlap_hop: int = 512, verbose: bool = False,
-             eval_dir: str = '.', batched: bool = True):
+             eval_dir: str = '.', batched: bool = True, mesh=None):
     """Challenge evaluation of ``module`` (the model, weights loaded) over
     ``eval_dir/*.wav`` against the ``task2_answer`` of
     ``eval_dir/sample_answer.json`` (reference: metrics.py:31-90). Returns
     the per-clip ER list, in sorted path order. Runs on the module's
     device. ``batched`` (the default, as in JAX) scores two or more clips
     through :func:`batched_grids` where the corpus and the model allow it,
-    else clip by clip; the grids are the same."""
+    else clip by clip; the grids are the same. With a ``mesh`` every rank
+    calls it and the work is split over the ranks (the module
+    docstring)."""
     with open(os.path.join(eval_dir, 'sample_answer.json')) as f:
         answer_gt = json.load(f)['task2_answer']
     to_metric = output_to_metric(HOP, SR)
     paths = sorted(glob(os.path.join(eval_dir, '*.wav')))
     grids = None
     if batched and len(paths) > 1:
-        grids = batched_grids(config, module, paths, overlap_hop)
+        grids = batched_grids(config, module, paths, overlap_hop, mesh=mesh)
     if grids is None:
-        grids = [(clip_scores(config, module, path, overlap_hop, i)
+        grids = [(clip_scores(config, module, path, overlap_hop, i, mesh)
                   >= 0.5).float().cpu().numpy()
                  for i, path in enumerate(paths)]
     final_score = []

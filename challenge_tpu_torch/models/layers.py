@@ -34,6 +34,13 @@ pass from repeating the first one's effects: it moves no BN running
 statistic (the first pass did, and the momentum would apply twice) and
 draws nothing (it takes the first pass's draws, :func:`remat_draw`, so a
 generator is drawn once and the masks agree) (ROADMAP C11, C12).
+
+On a data-parallel mesh (``parallel.mesh``) the training step runs
+inside :func:`cross_replica`: each :class:`BatchNorm` then averages its
+batch mean and mean of squares over the ranks before it forms the
+variance, through an all-reduce that the backward pass reduces too, so
+the statistics, their gradients and the running statistics are those of
+the global batch, as GSPMD computes them in JAX's mesh step.
 """
 
 from __future__ import annotations
@@ -188,6 +195,49 @@ def remat_draw(draw):
     return out
 
 
+# the mesh whose ranks share BN statistics in the running training step
+_replicas = None
+
+
+@contextlib.contextmanager
+def cross_replica(mesh):
+    """BatchNorm's training statistics over the ranks of ``mesh`` inside
+    the block (the forward and the backward of a mesh step)."""
+    global _replicas
+    _replicas = mesh
+    try:
+        yield
+    finally:
+        _replicas = None
+
+
+class _ReplicaSum(torch.autograd.Function):
+    """Sum over the ranks; its gradient is the sum of the ranks' upstream
+    gradients, as the statistics feed every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        out = x.clone()
+        mesh.all_reduce_([out])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        ctx.mesh.all_reduce_([grad])
+        return grad, None
+
+
+def _replica_means(mean, mean_sq):
+    """The mean and mean of squares of the global batch, from each rank's
+    over its equal share."""
+    n = mean.shape[0]
+    both = _ReplicaSum.apply(torch.cat([mean, mean_sq]), _replicas)
+    both = both / _replicas.size
+    return both[:n], both[n:]
+
+
 class BatchNorm(nn.Module):
     """Keras-default BatchNormalization over every axis but ``feature_dim``.
     Statistics and normalization run in float32 at least, whatever the
@@ -223,7 +273,10 @@ class BatchNorm(nn.Module):
         shape[dim] = x.shape[dim]
         if self.training:
             mean = x.mean(dim=axes)
-            var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            mean_sq = (x * x).mean(dim=axes)
+            if _replicas is not None:
+                mean, mean_sq = _replica_means(mean, mean_sq)
+            var = (mean_sq - mean * mean).clamp(min=0.0)
             if not (_remat and _remat[1]):     # not a remat's recompute
                 with torch.no_grad():
                     m = self.momentum

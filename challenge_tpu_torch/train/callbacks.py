@@ -9,6 +9,13 @@ live weights with the SWA average after EarlyStopping may have restored
 the best weights (reference: sj_train.py:489-500 callback order).
 :class:`TrainStateCheckpoint`, which the CLIs add after the others when
 given ``--ckpt_dir``, saves the full train state for ``--resume``.
+
+On a data-parallel mesh every rank runs the callbacks on the same logs
+(the steps reduce their metrics over the ranks), so EarlyStopping, the
+learning-rate schedules, SWA and TerminateOnNaN decide alike everywhere,
+but only rank 0 writes files (``parallel.mesh.is_writer``): the CSV log,
+the checkpoints, TensorBoard's events and the eval callback's. The eval
+callback scores the dev set on rank 0 and broadcasts the score.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Callable
 
 import numpy as np
 
+from challenge_tpu_torch.parallel import mesh as mesh_lib
 from challenge_tpu_torch.train import checkpoint
 from challenge_tpu_torch.train.state import swa_update
 
@@ -65,6 +73,8 @@ class CSVLogger(Callback):
         self._keys = None
 
     def on_epoch_end(self, epoch, logs):
+        if not mesh_lib.is_writer():
+            return
         new_file = (not os.path.exists(self.filename)
                     or os.path.getsize(self.filename) == 0)
         if self._keys is None:
@@ -94,6 +104,8 @@ class ModelCheckpoint(Callback):
         if value is None or not value < self.best:
             return
         self.best = value
+        if not mesh_lib.is_writer():
+            return
         checkpoint.save_weights(self.filepath,
                                 self.loop.state.module.state_dict(),
                                 keras=self.keras, bundle=self.loop.bundle)
@@ -229,8 +241,20 @@ class EvalCallback(Callback):
         self.keras = keras
 
     def on_epoch_end(self, epoch, logs):
-        if epoch % 5 != 2 or not os.path.exists(self.name):
+        if epoch % 5 != 2:
             return
+        mesh = mesh_lib.current()
+        score = self._score() if mesh_lib.is_writer() else None
+        if mesh is not None:
+            score = mesh.broadcast_object(score)
+        if score is not None:
+            logs['challenge_er'] = score
+
+    def _score(self):
+        """The dev-set score of the checkpoint, after keeping its weights
+        as ``_sample`` when they score best; None before a checkpoint."""
+        if not os.path.exists(self.name):
+            return None
         from challenge_tpu_torch.evaluate.infer import evaluate
         module = self.loop.state.module
         weights = checkpoint.load_weights(self.name,
@@ -239,12 +263,12 @@ class EvalCallback(Callback):
         model = copy.deepcopy(module)
         model.load_state_dict(weights)
         score = float(np.mean(evaluate(self.config, model, verbose=True)))
-        logs['challenge_er'] = score
         if score <= self.score:
             self.score = score
             checkpoint.save_weights(
                 os.path.splitext(self.name)[0] + '_sample.h5', weights,
                 keras=self.keras, bundle=self.loop.bundle)
+        return score
 
 
 class TrainStateCheckpoint(Callback):
@@ -260,11 +284,12 @@ class TrainStateCheckpoint(Callback):
         self.every = max(every_epochs, 1)
 
     def on_epoch_end(self, epoch, logs):
-        if (epoch + 1) % self.every == 0:
+        if (epoch + 1) % self.every == 0 and mesh_lib.is_writer():
             checkpoint.save_train_state(self.ckpt_dir, self.loop.state)
 
     def on_train_end(self, logs=None):
-        checkpoint.save_train_state(self.ckpt_dir, self.loop.state)
+        if mesh_lib.is_writer():
+            checkpoint.save_train_state(self.ckpt_dir, self.loop.state)
 
 
 class TensorBoard(Callback):
@@ -272,11 +297,13 @@ class TensorBoard(Callback):
     ``torch.utils.tensorboard`` (reference: sj_train.py:494). Where that
     writer cannot be made (no ``tensorboard`` package, an unwritable log
     dir) it says so once on stdout and does nothing, as the JAX callback
-    does."""
+    does. A rank other than 0 makes no writer."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self._writer = None
+        if not mesh_lib.is_writer():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
             self._writer = SummaryWriter(log_dir)

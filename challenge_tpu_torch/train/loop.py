@@ -27,6 +27,16 @@ A model with stochastic depth (the eff family) trains each epoch with its
 generator reseeded by (seed, epoch) on a stream of its own
 (:meth:`TrainLoop.dropout_gen`), so a given epoch drops the same samples
 after a restart, as JAX's per-epoch keys do (loop.py:135-142).
+
+On a data-parallel mesh (``mesh=``, banks mode only; counterpart:
+loop.py:40-95) every rank runs the loop: rank 0's initial state is
+broadcast to the others, each rank takes its block of the banks'
+clip axis with ``config.bank_shard`` (``parallel.mesh.shard_banks``) or
+a whole copy on its device otherwise, a rotation uploads every chunk to
+each rank's device, and the phase and stochastic-depth generators are
+seeded by the rank too, so the ranks draw different shares of each
+batch. The steps return the global batch's metrics, so every rank logs
+the same values and its callbacks take the same decisions.
 """
 
 from __future__ import annotations
@@ -38,8 +48,9 @@ import numpy as np
 import torch
 
 from challenge_tpu_torch.data.mixture import Banks
-from challenge_tpu_torch.data.streaming import StreamingBanks
+from challenge_tpu_torch.data.streaming import StreamingBanks, map_banks
 from challenge_tpu_torch.models.registry import ModelBundle
+from challenge_tpu_torch.parallel.mesh import replicate, shard_banks
 from challenge_tpu_torch.parallel.train import (
     make_fused_eval_step, make_fused_train_step)
 from challenge_tpu_torch.train.callbacks import Callback
@@ -52,22 +63,34 @@ class TrainLoop:
     """Owns the TrainState and drives epochs, with Keras-style callbacks.
     ``loss_fn`` replaces ``get_loss(config)`` in the train and eval steps
     (``state.make_grad_update``); ``variant`` is the banks mode's batch
-    (``'sj'`` or the density trainer's ``'density'``)."""
+    (``'sj'`` or the density trainer's ``'density'``); ``mesh`` the
+    joined data-parallel mesh this process is a rank of, if any."""
 
     def __init__(self, bundle: ModelBundle, seed: int = 0,
                  banks: Optional[Union[Banks, StreamingBanks]] = None,
                  val_banks: Optional[Banks] = None, loss_fn=None,
-                 variant: str = 'sj'):
+                 variant: str = 'sj', mesh=None):
         self.bundle = bundle
         self.config = bundle.config
         self.seed = seed
+        self.mesh = mesh
         self.fused = banks is not None
         self.streaming = isinstance(banks, StreamingBanks)
+        bank_shard = bool(self.config.bank_shard) and mesh is not None
+        if mesh is not None and not self.fused:
+            raise ValueError('a mesh trains in banks mode (pass banks=)')
+        if self.streaming and bank_shard:
+            raise ValueError(
+                'streaming bank rotation and bank_shard are exclusive: '
+                'sharded chunks would re-upload per-device slices every '
+                'rotation — pick one capacity axis')
         if self.fused:
             self.train_step = make_fused_train_step(
-                bundle, self.config, loss_fn, variant)
-            self.eval_step = make_fused_eval_step(bundle, self.config,
-                                                  loss_fn, variant)
+                bundle, self.config, loss_fn, variant, mesh=mesh,
+                bank_sharded=bank_shard)
+            self.eval_step = make_fused_eval_step(
+                bundle, self.config, loss_fn, variant, mesh=mesh,
+                bank_sharded=bank_shard)
             self.steps_per_call = self.train_step.steps_per_call
         else:
             if max(int(self.config.grad_accum), 1) > 1:
@@ -79,11 +102,30 @@ class TrainLoop:
             self.eval_step = make_eval_step(bundle, loss_fn)
             self.steps_per_call = 1
         self.state = init_state(bundle, seed)
+        if mesh is not None:
+            replicate(self.state.module, mesh)
+            if self.streaming:
+                banks.set_placement(mesh.device)
+            else:
+                banks = self._place(banks, bank_shard)
+            if val_banks is not None:
+                val_banks = self._place(val_banks, bank_shard)
         self.banks, self.val_banks = banks, val_banks
         self.stop_training = False
         self.history: List[dict] = []
         self._gens = {}      # banks mode's phase generators, then dropout's
         self.gen = None      # the last training epoch's dropout generator
+
+    def _place(self, banks: Banks, shard: bool) -> Banks:
+        """The rank's block of ``banks`` (``shard``), or all of them on the
+        rank's device."""
+        if shard:
+            return shard_banks(banks, self.mesh)
+        return map_banks(banks, lambda t: t.to(self.mesh.device))
+
+    def _rank_key(self) -> list:
+        """The rank, in the generators' seeds on a mesh."""
+        return [] if self.mesh is None else [self.mesh.rank]
 
     def steps_per_fused_epoch(self, steps_per_epoch: int) -> int:
         """The optimizer steps a training epoch advances: in banks mode
@@ -115,7 +157,8 @@ class TrainLoop:
     def phase_gen(self, epoch: int, training: bool) -> torch.Generator:
         """Banks mode's generator of (seed, epoch, phase) (loop.py:135-142):
         one per phase, reseeded for each epoch."""
-        seed = np.random.SeedSequence([self.seed, epoch, int(training)])
+        seed = np.random.SeedSequence([self.seed, epoch, int(training)]
+                                      + self._rank_key())
         return self._generator(training, seed)
 
     def dropout_gen(self, epoch: int):
@@ -123,7 +166,8 @@ class TrainLoop:
         None for a model without stochastic depth."""
         if not self.bundle.needs_dropout_gen:
             return None
-        seed = np.random.SeedSequence([self.seed, epoch], spawn_key=(1,))
+        seed = np.random.SeedSequence([self.seed, epoch] + self._rank_key(),
+                                      spawn_key=(1,))
         return self._generator('dropout', seed)
 
     def _finalize(self, sums, count):

@@ -10,6 +10,16 @@ JAX package it is split at the gradient (``make_grad_update``), so the
 gradients can be inspected or accumulated (:func:`accumulate_grads`).
 Metrics read the first output and target of a multi-output model, the se
 cascade's class head (state.py:60).
+
+On a data-parallel mesh (``mesh=``, ``parallel.mesh``) each rank runs the
+step on its equal share of the global batch, its BatchNorms under
+``models.layers.cross_replica``. The global loss is the mean of the
+shares' means, so the update sums the ranks' gradients and divides by
+their count before AGC, the freeze mask and the optimizer, which then
+move every rank's weights alike (AGC's clipped gradients are rank 0's,
+broadcast). A penalty that every rank adds (the
+kernel regularizer) is counted once by that division. The metrics are
+reduced as JAX's global-batch metrics are (:func:`reduce_metrics`).
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from challenge_tpu_torch.models.layers import remat_contexts
+from challenge_tpu_torch.models.layers import cross_replica, remat_contexts
 from challenge_tpu_torch.models.registry import ModelBundle
 from challenge_tpu_torch.train import metrics as metrics_lib
 from challenge_tpu_torch.train.losses import get_loss
@@ -69,7 +79,26 @@ def _loss_of(loss_fn, y, out, module):
     return loss_fn(y, out)
 
 
-def make_grad_update(bundle: ModelBundle, loss_fn=None):
+def reduce_metrics(metrics: dict, mesh) -> dict:
+    """The global batch's metrics from each rank's over its equal share:
+    the F1 counts summed, every other metric (a mean over the share) the
+    mean over the ranks. Without a mesh, ``metrics`` as they are."""
+    if mesh is None:
+        return metrics
+    out = {k: v.clone() for k, v in metrics.items()}
+    mesh.all_reduce_(list(out.values()))
+    return {k: v if k == 'f1_counts' else v / mesh.size
+            for k, v in out.items()}
+
+
+def reduce_grads(grads, mesh):
+    """The ranks' gradients summed and divided by their count."""
+    grads = [g.clone() for g in grads]
+    mesh.all_reduce_(grads)
+    return [g / mesh.size for g in grads]
+
+
+def make_grad_update(bundle: ModelBundle, loss_fn=None, mesh=None):
     """The train step split at the gradient boundary. ``loss_fn`` is
     ``(y, out) -> (loss, parts)``, by default ``get_loss(config)`` (see
     :func:`_loss_of` for one that needs the module). Returns
@@ -95,7 +124,11 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None):
     ('vad' and 'se'); the others only get the optimizer's clipvalue. The
     freeze mask multiplies the frozen half's gradients by 0 after AGC
     (state.py:115-127), so Keras Adam's moments of those weights stay 0
-    and their update is exactly 0: the weights stay bit-identical."""
+    and their update is exactly 0: the weights stay bit-identical.
+
+    With a ``mesh``, ``grad_fn`` runs its forward and backward with
+    cross-replica BN statistics, and ``update_fn`` first reduces the
+    gradients over the ranks (:func:`reduce_grads`)."""
     config = bundle.config
     loss_fn = loss_fn or get_loss(config)
     metric_fns = metrics_lib.batch_metrics(config)
@@ -107,6 +140,12 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None):
     remat = bool(getattr(config, 'remat', False))
 
     def grad_fn(module: nn.Module, batch, gen=None):
+        if mesh is None:
+            return local_grad_fn(module, batch, gen)
+        with cross_replica(mesh):
+            return local_grad_fn(module, batch, gen)
+
+    def local_grad_fn(module: nn.Module, batch, gen=None):
         x, y = batch
         module.train()
 
@@ -128,8 +167,15 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None):
     @torch.no_grad()
     def update_fn(state: TrainState, grads) -> None:
         params = list(state.module.parameters())
+        if mesh is not None:
+            grads = reduce_grads(grads, mesh)
         if use_agc:
             grads = adaptive_clip_grad(params, grads, transposed=transposed)
+            if mesh is not None:
+                # the unit norms are reductions whose rounding may follow
+                # a buffer's address, which differs from rank to rank:
+                # rank 0's clipped gradients keep the ranks identical
+                mesh.broadcast_(grads)
         if mask is not None:
             grads = [g * float(m) for g, m in zip(grads, mask)]
         for p, g in zip(params, grads):
@@ -172,24 +218,26 @@ def accumulate_grads(grad_fn, module: nn.Module, batches: Iterable,
     return grads, mean_metrics(metrics)
 
 
-def make_train_step(bundle: ModelBundle, loss_fn=None):
+def make_train_step(bundle: ModelBundle, loss_fn=None, mesh=None):
     """``train_step(state, (x, y), gen=None) -> metrics``; updates
-    ``state`` in place. ``gen`` and ``loss_fn`` as for
-    :func:`make_grad_update`."""
-    grad_fn, update_fn = make_grad_update(bundle, loss_fn)
+    ``state`` in place. ``gen``, ``loss_fn`` and ``mesh`` as for
+    :func:`make_grad_update`; on a mesh ``(x, y)`` is the rank's share and
+    the metrics are the global batch's."""
+    grad_fn, update_fn = make_grad_update(bundle, loss_fn, mesh)
 
     def train_step(state: TrainState, batch, gen=None):
         grads, metrics = grad_fn(state.module, batch, gen)
         update_fn(state, grads)
-        return metrics
+        return reduce_metrics(metrics, mesh)
 
     return train_step
 
 
-def make_eval_step(bundle: ModelBundle, loss_fn=None):
+def make_eval_step(bundle: ModelBundle, loss_fn=None, mesh=None):
     """Validation step: inference-mode forward + loss + metrics; the loss
     of a ``needs_params`` ``loss_fn`` includes its penalty, as JAX's
-    does."""
+    does. On a ``mesh`` the batch is the rank's share and the metrics are
+    the global batch's."""
     config = bundle.config
     loss_fn = loss_fn or get_loss(config)
     metric_fns = metrics_lib.batch_metrics(config)
@@ -200,7 +248,8 @@ def make_eval_step(bundle: ModelBundle, loss_fn=None):
         state.module.eval()
         out = state.module(x)
         loss, parts = _loss_of(loss_fn, y, out, state.module)
-        return _metrics(metric_fns, loss, parts, y, out)
+        return reduce_metrics(_metrics(metric_fns, loss, parts, y, out),
+                              mesh)
 
     return eval_step
 

@@ -19,3 +19,14 @@ def load_data(path: str):
         return np.load(path)
     raise ValueError(f'invalid file format: {path!r} (expected .pickle or '
                      '.npy)')
+
+
+def list_to_generator(dataset):
+    """A list, or a tuple of parallel lists, -> a generator factory
+    (reference: utils.py:77-85)."""
+    def _gen():
+        if isinstance(dataset, tuple):
+            yield from zip(*dataset)
+        else:
+            yield from dataset
+    return _gen

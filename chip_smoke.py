@@ -209,6 +209,24 @@ without the result line:
    (``chunk_steps`` 3, so the resume lands mid-rotation); then
    ``ckpt_save_ms`` and ``ckpt_restore_ms`` of vad v8 and of the density
    model at the trainer's defaults (17,564,315 parameters);
+5k. the data-parallel mesh (``parallel/``): two ranks share the card over
+   gloo, this process rank 0 and a child rank 1 (``parallel.launch``),
+   with vad v8 at full width and batch 12, 6 a rank. One SGD step of
+   ``make_sharded_train_step`` on a fixed global batch against the
+   one-process step on it (loss rtol 1e-5, every weight and BN statistic
+   rtol 1e-4 / atol 1e-6, JAX's bounds in tests/test_parallel.py); 3
+   fused mesh steps on replicated float32 banks and 3 on ``--bank_shard``
+   int8 banks (each rank its block), one ``synth_mag_f32`` or
+   ``synth_mag_int8`` launch a step in each rank, the ranks'
+   ``state_dict``s equal bit for bit after them; the fused mesh step and
+   the one-process eager step timed in turns (mesh, one, one, mesh) on
+   the float32 banks: two ranks on one card, not a speed measurement;
+   ``evaluate(mesh=)`` on a 6 x 60 s dev set, each rank a block of each
+   chunk's clips, its grids and ERs equal to the one-process batched
+   eval's on both ranks; then ``utils.profiling.trace`` around two
+   graphed vad v8 steps, writing a non-empty trace, with ``StepTimer``
+   around each, its step within 10% of phase 5g's ``fused_step_ms``;
+   printed on the ``MESH`` line;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the se triple's: its sources read once, three windows written), the
@@ -333,6 +351,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import glob
+import hashlib
 import io
 import json
 import math
@@ -377,10 +397,13 @@ from challenge_tpu_torch.train.checkpoint import (
     checkpoint_steps, load_weights, restore_train_state, save_train_state,
     save_weights, train_state_tensors)
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
-from challenge_tpu_torch.parallel import make_fused_train_step
+from challenge_tpu_torch.parallel import (
+    current, launch, make_fused_train_step, make_sharded_train_step,
+    replicate, shard_banks, shard_batch)
+from challenge_tpu_torch.utils import profiling
 from challenge_tpu_torch.train.optim import make_optimizer
 from challenge_tpu_torch.train.state import (
-    TrainState, init_state, make_grad_update)
+    TrainState, init_state, make_grad_update, make_train_step)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
@@ -400,6 +423,8 @@ BF16_TIMED_STEPS = 10                      # phase 5h, each turn (se: 5)
 STREAM_CHUNKS = 4                          # phases 5i, 5j
 STREAM_TIMED_STEPS = 16                    # phase 5i, each turn
 RESUME_EPOCHS, RESUME_STEPS, RESUME_STOP = 4, 5, 2     # phase 5j
+MESH_SIZE, MESH_STEPS, MESH_TIMED_STEPS = 2, 3, 5      # phase 5k
+MESH_TIMER_TOL = 0.10          # phase 5k: StepTimer against fused_step_ms
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
@@ -1665,6 +1690,218 @@ def resume_checks(resident, chunks) -> dict:
             del bundle, state
     res['resume_5j_s'] = time.perf_counter() - start
     log(f'phase 5j: {res["resume_5j_s"]:.3f} s')
+    return res
+
+
+def state_digest(module) -> str:
+    """A hash of every byte of ``module``'s weights and BN statistics."""
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def grids_digest(grids) -> list:
+    return [hashlib.sha256(np.ascontiguousarray(g).tobytes()).hexdigest()
+            for g in grids]
+
+
+def mesh_banks(dtype: str, shard: bool, mesh):
+    """Phase 5k's banks, built alike in every rank from one seed: on the
+    rank's card, or with ``shard`` on the host and the rank's block of
+    them copied to the card."""
+    src = sources(7, 8, 1875, 64, (40, 130), 16, (20, 100))
+    banks = build_banks(*src, n_frame=512, flat_dtype=dtype,
+                        device='cpu' if shard else mesh.device)
+    return shard_banks(banks, mesh) if shard else banks
+
+
+def mesh_rank(args: dict) -> dict:
+    """What each rank of phase 5k runs; rank 0 is this script's process,
+    rank 1 a child that imports this module. Rank 0 returns the tensors
+    it is held to, rank 1 their hashes."""
+    mesh = current()
+    dev = mesh.device
+    out = {'rank': mesh.rank, 'backend': mesh.backend}
+    # one SGD step of the sharded train step on the fixed global batch
+    cfg = Config(model_type='vad', v=8, optimizer='sgd')
+    bundle = get_model(cfg)
+    state = TrainState(bundle.module, make_optimizer(
+        cfg, bundle.module.parameters()))
+    x, y = (torch.from_numpy(a).to(dev) for a in args['batch'])
+    metrics = make_sharded_train_step(bundle, mesh)(
+        state, shard_batch((x, y), mesh))
+    out['sgd_loss'] = float(metrics['loss'])
+    out['sgd_digest'] = state_digest(bundle.module)
+    if mesh.rank == 0:
+        out['sgd_state'] = {k: v.detach().clone()
+                            for k, v in bundle.module.state_dict().items()}
+    del bundle, state, x, y
+    # 3 fused mesh steps on replicated float32 and sharded int8 banks
+    for dtype, shard in (('float32', False), ('int8', True)):
+        cfg = Config(model_type='vad', v=8, bank_dtype=dtype,
+                     bank_shard=shard)
+        banks = mesh_banks(dtype, shard, mesh)
+        bundle = get_model(cfg)
+        state = init_state(bundle, 0)
+        replicate(state.module, mesh)
+        step = make_fused_train_step(bundle, cfg, mesh=mesh,
+                                     bank_sharded=shard)
+        gen = torch.Generator(device=dev).manual_seed(20 + mesh.rank)
+        cuda.reset_launch_counts()
+        losses = [float(step(state, banks, gen)['loss'])
+                  for _ in range(MESH_STEPS)]
+        torch.cuda.synchronize()
+        out[f'{dtype}_launches'] = dict(cuda.LAUNCHES)
+        out[f'{dtype}_losses'] = losses
+        out[f'{dtype}_digest'] = state_digest(bundle.module)
+        out[f'{dtype}_voices'] = banks.voices.n
+        if dtype == 'float32':
+            # the mesh step and, on rank 0 alone, the one-process eager
+            # step on the whole batch, in turns
+            one = get_model(cfg)
+            one_state = init_state(one, 0)
+            one_step = make_fused_train_step(one, cfg)
+            out['mesh_step_ms'], out['one_process_step_ms'] = [], []
+            for which in ('mesh', 'one', 'one', 'mesh'):
+                if which == 'mesh':
+                    out['mesh_step_ms'].append(wall_ms(
+                        lambda: step(state, banks, gen), MESH_TIMED_STEPS))
+                elif mesh.rank == 0:
+                    out['one_process_step_ms'].append(wall_ms(
+                        lambda: one_step.plain(one_state, banks, gen),
+                        MESH_TIMED_STEPS))
+            del one, one_state, one_step
+        del banks, bundle, state, step
+    # the dev set over the mesh
+    cfg = Config(model_type='vad', v=8)
+    module = get_model(cfg).module
+    module.load_state_dict({k: torch.from_numpy(v)
+                            for k, v in args['eval_weights'].items()})
+    paths = sorted(glob.glob(os.path.join(args['dev'], '*.wav')))
+    out['ers'] = infer.evaluate(cfg, module, eval_dir=args['dev'],
+                                mesh=mesh)
+    grids = infer.batched_grids(cfg, module, paths, mesh=mesh)
+    out['grids'] = grids if mesh.rank == 0 else None
+    out['grids_digest'] = grids_digest(grids)
+    return out
+
+
+def mesh_checks(dev, banks, fused_step_ms, d: str) -> dict:
+    """Phase 5k: the data-parallel mesh, two ranks on this card over gloo
+    (the module docstring); then ``utils.profiling`` around graphed vad v8
+    steps. Raises where a rank fails or a check does not hold."""
+    start = time.perf_counter()
+    cfg = Config(model_type='vad', v=8, optimizer='sgd')
+    x, y = FeatureFn(cfg, device=dev)(
+        torch.Generator(device=dev).manual_seed(31), banks)
+    # the one-process SGD step on the same global batch
+    one = get_model(cfg)
+    state = TrainState(one.module, make_optimizer(cfg,
+                                                  one.module.parameters()))
+    one_loss = float(make_train_step(one)(state, (x, y))['loss'])
+    one_sd = {k: v.detach().clone()
+              for k, v in one.module.state_dict().items()}
+    del one, state
+    # the eval model, made to fire on the dev set, and its one-process
+    # grids and ERs
+    ddir = os.path.join(d, 'mesh5k')
+    os.makedirs(ddir)
+    write_dev_set(ddir)
+    paths = sorted(glob.glob(os.path.join(ddir, '*.wav')))
+    ecfg = Config(model_type='vad', v=8)
+    module = get_model(ecfg).module
+    make_it_fire(ecfg, module, paths[:2])
+    ers = infer.evaluate(ecfg, module, eval_dir=ddir)
+    grids = infer.batched_grids(ecfg, module, paths)
+    args = {'batch': (x.cpu().numpy(), y.cpu().numpy()),
+            'eval_weights': {k: v.cpu().numpy()
+                             for k, v in module.state_dict().items()},
+            'dev': ddir}
+    del module
+    torch.cuda.empty_cache()
+    # rank 0's arguments are not pickled: the one-process step's banks
+    ranks = launch.run('chip_smoke:mesh_rank', (args,), [dev] * MESH_SIZE,
+                       workdir=d)
+    res = {'backends': [r['backend'] for r in ranks]}
+    r0 = ranks[0]
+    # 1. the sharded SGD step against the one-process step
+    if not math.isclose(r0['sgd_loss'], one_loss, rel_tol=1e-5):
+        raise AssertionError(f'mesh SGD loss {r0["sgd_loss"]} vs one '
+                             f'process {one_loss}')
+    worst = 0.0
+    for k, want in one_sd.items():
+        got = r0['sgd_state'][k]
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6,
+                                   msg=lambda m: f'mesh SGD {k}: {m}')
+        worst = max(worst, float((got.double() - want.double()).abs()
+                                 .max()))
+    res['sgd_loss'] = [r0['sgd_loss'], one_loss]
+    res['sgd_max_abs_diff'] = worst
+    # 2. the fused mesh steps: one launch a step a rank, ranks identical
+    for dtype, kernel in (('float32', 'synth_mag_f32'),
+                          ('int8', 'synth_mag_int8')):
+        res[f'{dtype}_launches'] = [r[f'{dtype}_launches'] for r in ranks]
+        for r in ranks:
+            check_launches(f'mesh {dtype} rank {r["rank"]}',
+                           r[f'{dtype}_launches'], {kernel: MESH_STEPS})
+            if not all(math.isfinite(v) for v in r[f'{dtype}_losses']):
+                raise AssertionError(f'mesh {dtype}: {r[f"{dtype}_losses"]}')
+        if len({r[f'{dtype}_digest'] for r in ranks}) != 1:
+            raise AssertionError(f'mesh {dtype}: the ranks\' state_dicts '
+                                 'differ')
+        if len({tuple(r[f'{dtype}_losses']) for r in ranks}) != 1:
+            raise AssertionError(f'mesh {dtype}: the ranks log different '
+                                 'metrics')
+        res[f'{dtype}_losses'] = r0[f'{dtype}_losses']
+    res['int8_voices_a_rank'] = [r['int8_voices'] for r in ranks]
+    if len({r['sgd_digest'] for r in ranks}) != 1:
+        raise AssertionError('mesh SGD: the ranks\' state_dicts differ')
+    res['mesh_step_ms'] = r0['mesh_step_ms']
+    res['one_process_step_ms'] = r0['one_process_step_ms']
+    # 3. the dev set over the mesh
+    for r in ranks:
+        if r['ers'] != ers:
+            raise AssertionError(f'mesh eval rank {r["rank"]}: ERs '
+                                 f'{r["ers"]} vs {ers}')
+        if r['grids_digest'] != grids_digest(grids):
+            raise AssertionError(f'mesh eval rank {r["rank"]}: grids differ')
+    same_grids('mesh eval', r0['grids'], grids)
+    res['ers'] = ers
+    res['mesh_s'] = time.perf_counter() - start
+    # 4. utils.profiling around graphed vad v8 steps
+    t0 = time.perf_counter()
+    bundle = get_model(Config(model_type='vad', v=8))
+    state = init_state(bundle, 0)
+    step = make_fused_train_step(bundle, bundle.config)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for _ in range(3):                    # capture, then replays
+        step(state, banks, gen)
+    tdir = os.path.join(d, 'trace5k')
+    timer = profiling.StepTimer()
+    with profiling.trace(tdir):
+        for _ in range(2):
+            with timer:
+                timer.sync(step(state, banks, gen))
+    files = [os.path.join(r, f) for r, _, fs in os.walk(tdir) for f in fs]
+    sizes = [os.path.getsize(f) for f in files]
+    if not sizes or min(sizes) == 0:
+        raise AssertionError(f'trace wrote {files}, {sizes} bytes')
+    summary = timer.summary()
+    ref_ms = sum(fused_step_ms) / len(fused_step_ms)
+    res['trace_files'] = [os.path.basename(f) for f in files]
+    res['trace_bytes'] = sizes
+    res['step_timer'] = summary
+    res['fused_step_ms'] = ref_ms
+    if abs(summary['mean_ms'] - ref_ms) > MESH_TIMER_TOL * ref_ms:
+        raise AssertionError(f'StepTimer {summary} vs fused_step_ms '
+                             f'{ref_ms}')
+    del bundle, state, step
+    res['profiling_s'] = time.perf_counter() - t0
+    res['mesh_5k_s'] = time.perf_counter() - start
+    log(f'phase 5k: {res["mesh_5k_s"]:.3f} s')
     return res
 
 
@@ -3208,6 +3445,14 @@ def main(argv) -> int:
     stream_res, chunks = stream_checks(dev, banks['float32'])
     resume_res = resume_checks(banks['float32'], chunks)
     del chunks
+    # 5k. the data-parallel mesh, two ranks on this card; utils.profiling
+    mesh_dir = tempfile.mkdtemp(prefix='chip_smoke_5k_')
+    try:
+        mesh_res = mesh_checks(dev, banks['float32'],
+                               fused_res['vad_v8']['fused_step_ms'],
+                               mesh_dir)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
 
     # 6. times: each kernel on the main path's draws (the flat-complex
     # ones on the full mix, the se triple on the same draws); then the
@@ -3427,6 +3672,13 @@ def main(argv) -> int:
         **{k: cli[k] for k in ('stream_cli_s', 'sj_train_ckpt_steps',
                                'trainer_ckpt_steps', 'stream_7g_s')},
         'card': smi}))
+    log('MESH ' + json.dumps({
+        **{k: v for k, v in mesh_res.items()
+           if not k.endswith('launches')},
+        'launches_a_rank': {dt: mesh_res[f'{dt}_launches']
+                            for dt in ('float32', 'int8')},
+        'times': 'two ranks on one card, not a speed measurement',
+        'card': smi}))
     keras = cli['keras']
     log('KERAS ' + json.dumps({**{k: v for k, v in keras.items()
                                   if k != 'keras_launches'}, 'card': smi}))
@@ -3470,6 +3722,8 @@ def main(argv) -> int:
         'bf16_launches': sum(c.get(name, 0) for c in bf16_launches),
         'stream_launches': sum(c.get(name, 0) for c in stream_launches),
         'keras_7h_launches': keras.get('keras_launches', {}).get(name, 0),
+        'mesh_5k_launches': sum(c.get(name, 0) for dt in ('float32', 'int8')
+                                for c in mesh_res[f'{dt}_launches']),
         'max_abs_err': max(errs[name].values()),
         **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {

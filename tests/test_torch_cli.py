@@ -101,24 +101,32 @@ def _jax_reads_the_trio(jb, stems, pb):
         assert all(torch.equal(got[k], ref[k]) for k in ref), stem
 
 
+def _dev_clip(d):
+    """One 4 s clip and its answers in ``d``, for the eval callback."""
+    write_wav(d / 'clip01.wav', seconds=4.0, seed=1, tone_hz=440)
+    with open(d / 'sample_answer.json', 'w') as f:
+        json.dump({'task2_answer': {'clip01': [[0, 1.0, 2.0]]}}, f)
+
+
 @pytest.mark.parametrize('flag', [['--keras_ckpt', 'True'],
                                   ['--bank_shard', 'True']])
-def test_sj_train_refuses_unported_flags(tmp_path, monkeypatch, flag):
-    """``--bank_shard`` where two devices divide the batch, so JAX would
-    shard the banks over a mesh (ROADMAP A14, C14). ``--keras_ckpt``, once
-    refused here (A15), now trains: 3 epochs of 2 steps on int8 banks and
-    32 mels
-    write {run}.h5, _SWA.h5 and, from the eval callback at epoch 2,
-    _sample.h5 as Keras HDF5 files that JAX reads."""
+def test_sj_train_trains_with_the_once_refused_flags(tmp_path, monkeypatch,
+                                                     capsys, flag):
+    """Both flags were refused once. ``--keras_ckpt`` (A15): 3 epochs of 2
+    steps on int8 banks and 32 mels write {run}.h5, _SWA.h5 and, from the
+    eval callback at epoch 2, _sample.h5 as Keras HDF5 files that JAX
+    reads. ``--bank_shard`` where two devices divide the batch (A14):
+    JAX's policy builds a mesh of 2 (C14), so the run trains over a
+    2-rank CPU mesh with each rank's block of the banks, prints JAX's mesh
+    line, and only rank 0 writes the run's files: the CSV log holds one
+    header and 3 epochs."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
     make_datafiles(tmp_path)
+    _dev_clip(tmp_path)
     if flag[0] == '--keras_ckpt':
         from challenge_tpu.models import get_model as jget_model
         from challenge_tpu_torch.models.registry import get_model
-        monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
-        write_wav(tmp_path / 'clip01.wav', seconds=4.0, seed=1, tone_hz=440)
-        with open(tmp_path / 'sample_answer.json', 'w') as f:
-            json.dump({'task2_answer': {'clip01': [[0, 1.0, 2.0]]}}, f)
         argv = ARGV + DATA_FLAGS + ['--bank_dtype', 'int8', '--n_mels',
                                     '32'] + flag
         run = sj_train.main(argv + ['--device', 'cpu'])
@@ -129,8 +137,17 @@ def test_sj_train_refuses_unported_flags(tmp_path, monkeypatch, flag):
             get_model(Config(**dataclasses.asdict(jcfg)), device='cpu'))
         return
     monkeypatch.setattr(mesh, 'device_count', lambda device: 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP A1[45]'):
-        sj_train.main(ARGV + DATA_FLAGS + flag + ['--device', 'cpu'])
+    argv = ARGV + DATA_FLAGS + flag + ['--bank_dtype', 'int8']
+    run = sj_train.main(argv + ['--device', 'cpu'])
+    assert run == jconfig.config_from_args(argv).run_name()
+    out = capsys.readouterr().out
+    assert 'data-parallel mesh over 2 devices (banks sharded)' in out
+    assert 'Epoch 3/3' in out and 'FINAL SCORE' in out
+    for suffix in ('.h5', '_SWA.h5', '_sample.h5'):
+        assert (tmp_path / f'{run}{suffix}').exists(), suffix
+    with open(tmp_path / f'{run}.csv') as f:
+        assert [r[0] for r in csv.reader(f)] == ['epoch', '0', '1', '2']
+    assert not list(tmp_path.glob('.mesh-*')) and mesh.current() is None
 
 
 # ------------------------------------------------ the device policy (C14)
@@ -146,9 +163,10 @@ def test_device_policy_is_jax_mesh_for_config(monkeypatch, capsys, avail,
                                               n_devices, batch,
                                               bank_shard):
     """ROADMAP C14: over the same device count, JAX's ``mesh_for_config``
-    and the port's ``devices_for_config`` print the same lines and raise
-    the same ValueErrors; where JAX trains single-device the port returns
-    1, and where JAX builds a mesh the port raises naming A14."""
+    and the port's print the same lines and raise the same ValueErrors;
+    where JAX trains single-device the port returns None, and where JAX
+    builds a mesh the port plans one of the same size, one rank a
+    device (joined only by the ranks that ``parallel.launch`` starts)."""
     from challenge_tpu.parallel import mesh as jmesh
     cfg = dict(model_type='vad', v=8, n_devices=n_devices,
                batch_size=batch, bank_shard=bank_shard)
@@ -162,17 +180,17 @@ def test_device_policy_is_jax_mesh_for_config(monkeypatch, capsys, avail,
     jax_out = capsys.readouterr().out
     if isinstance(ref, ValueError):
         with pytest.raises(ValueError) as got:
-            mesh.devices_for_config(Config(**cfg), torch.device('cpu'))
+            mesh.mesh_for_config(Config(**cfg), torch.device('cpu'))
         assert str(got.value) == str(ref)
     elif ref is None:
-        assert mesh.devices_for_config(Config(**cfg),
-                                       torch.device('cpu')) == 1
+        assert mesh.mesh_for_config(Config(**cfg),
+                                    torch.device('cpu')) is None
     else:
         assert ref.devices.size > 1
-        with pytest.raises(NotImplementedError,
-                           match=f'mesh over {ref.devices.size} devices.*'
-                                 'ROADMAP A14'):
-            mesh.devices_for_config(Config(**cfg), torch.device('cpu'))
+        got = mesh.mesh_for_config(Config(**cfg), torch.device('cpu'))
+        assert got.size == ref.devices.size and not got.joined
+        assert got.devices == (torch.device('cpu'),) * got.size
+        assert got.backend == 'gloo'
     assert capsys.readouterr().out == jax_out
 
 
@@ -184,22 +202,23 @@ def test_device_count_is_cuda_s_or_one_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize('cli,count,flags,expect', [
     ('sj_train', 1, ['--n_devices', '2'], 'trains'),
-    ('sj_train', 2, ['--batch_size', '12'], 'A14'),
+    ('sj_train', 2, ['--batch_size', '4'], 'mesh'),
     ('sj_train', 5, [], 'does not divide'),
     ('sj_train', 1, ['--bank_shard', 'True'], 'bank_shard has no effect'),
     ('sj_train', 2, ['--n_devices', '1', '--bank_shard', 'True'],
      'n_devices caps it'),
     ('trainer', 1, ['--n_devices', '2'], 'trains'),
-    ('trainer', 2, ['--batch_size', '12'], 'A14'),
+    ('trainer', 2, ['--batch_size', '4'], 'mesh'),
     ('trainer', 5, [], 'does not divide'),
     ('trainer', 5, ['--bank_shard', 'True'], 'does not divide the 5')])
 def test_clis_follow_the_device_policy(tmp_path, monkeypatch, capsys, cli,
                                        count, flags, expect):
-    """Both CLIs take JAX's policy over the (monkeypatched) device count,
-    before any data is read: one device trains, with the bank_shard note;
-    an indivisible batch trains single-device with JAX's line; a mesh
-    raises naming A14; bank_shard that cannot shard raises JAX's
-    ValueError."""
+    """Both CLIs take JAX's policy over the (monkeypatched) device count:
+    one device trains, with the bank_shard note; an indivisible batch
+    trains single-device with JAX's line; two devices that divide the
+    batch train over a 2-rank CPU mesh with JAX's mesh line (once refused,
+    ROADMAP A14); bank_shard that cannot shard raises JAX's ValueError
+    before any data is read."""
     from challenge_tpu_torch.cli import trainer
     monkeypatch.chdir(tmp_path)
     monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
@@ -212,16 +231,17 @@ def test_clis_follow_the_device_policy(tmp_path, monkeypatch, capsys, cli,
         argv = DENSITY_ARGV[:-4] + ['--epochs', '2', '--steps_per_epoch',
                                     '1']
     argv += ['--datapath', str(tmp_path), '--device', 'cpu'] + DATA_FLAGS
-    if expect in ('A14', 'n_devices caps it', 'does not divide the 5'):
-        err = NotImplementedError if expect == 'A14' else ValueError
-        with pytest.raises(err, match=expect):
+    if expect in ('n_devices caps it', 'does not divide the 5'):
+        with pytest.raises(ValueError, match=expect):
             main(argv + flags)       # no data files: raised before reading
         return
     make_datafiles(tmp_path)
     main(argv + flags)
     out = capsys.readouterr().out
     assert 'Epoch 1/' in out
-    if expect != 'trains':
+    if expect == 'mesh':
+        assert 'data-parallel mesh over 2 devices\n' in out
+    elif expect != 'trains':
         assert expect in out
 
 
@@ -645,22 +665,26 @@ def test_trainer_refuses_n_chan_but_2(n_chan):
 
 
 @pytest.mark.parametrize('flag,item', [
-    (['--n_devices', '2'], 'A14'), (['--bank_shard', 'True'], 'A14'),
-    (['--keras_ckpt', 'True'], 'A15')])
-def test_trainer_refuses_unported_flags(monkeypatch, tmp_path, flag, item):
-    """Each unported flag raises naming its ROADMAP item, before any data
-    is read; ``--n_devices`` and ``--bank_shard`` where two devices divide
-    the default batch of 12, so JAX would build a mesh (C14).
-    ``--keras_ckpt``, once refused (A15), now trains: 2 epochs of 2 steps
-    write dens.h5 and dens_SWA.h5 as Keras HDF5 files that JAX reads."""
+    (['--n_devices', '2'], 'mesh'), (['--bank_shard', 'True'], 'mesh'),
+    (['--keras_ckpt', 'True'], 'keras')])
+def test_trainer_trains_with_the_once_refused_flags(monkeypatch, tmp_path,
+                                                    capsys, flag, item):
+    """Each flag was refused once. ``--n_devices 2`` and ``--bank_shard``
+    where two devices divide the batch (A14): JAX builds a mesh (C14), so
+    the run trains in banks mode over a 2-rank CPU mesh, the second with
+    each rank's block of the banks, and only rank 0 writes dens.h5,
+    dens_SWA.h5 and the log (one header, 2 epochs). ``--keras_ckpt``
+    (A15): 2 epochs of 2 steps write dens.h5 and dens_SWA.h5 as Keras
+    HDF5 files that JAX reads."""
     from challenge_tpu_torch.cli import trainer
-    if item == 'A15':
+    monkeypatch.chdir(tmp_path)
+    make_datafiles(tmp_path)
+    argv = DENSITY_ARGV + flag + ['--datapath', str(tmp_path), '--device',
+                                  'cpu'] + DATA_FLAGS
+    if item == 'keras':
         from challenge_tpu.models.registry import get_density_model as jdens
         from challenge_tpu_torch.models.registry import get_density_model
-        monkeypatch.chdir(tmp_path)
-        make_datafiles(tmp_path)
-        trainer.main(DENSITY_ARGV + flag + ['--datapath', str(tmp_path),
-                                            '--device', 'cpu'] + DATA_FLAGS)
+        trainer.main(argv)
         cfg = dict(model_type='eff', model='EfficientNetB0', n_mels=32,
                    n_frame=64, n_chan=2)
         _jax_reads_the_trio(jdens(jconfig.Config(**cfg)),
@@ -668,10 +692,16 @@ def test_trainer_refuses_unported_flags(monkeypatch, tmp_path, flag, item):
                             get_density_model(Config(**cfg), device='cpu'))
         return
     monkeypatch.setattr(mesh, 'device_count', lambda device: 2)
-    with pytest.raises(NotImplementedError,
-                       match=f'{flag[0][2:]}.*ROADMAP {item}'):
-        trainer.main(['--name', 'd', '--model', 'EfficientNetB0', '--n_chan',
-                      '2', '--device', 'cpu'] + flag)
+    assert trainer.main(argv) == 'dens'
+    out = capsys.readouterr().out
+    sharded = ' (banks sharded)' if flag[0] == '--bank_shard' else ''
+    assert f'data-parallel mesh over 2 devices{sharded}\n' in out
+    assert 'Epoch 2/2' in out
+    for f in ('dens.h5', 'dens_SWA.h5'):
+        assert (tmp_path / f).exists(), f
+    with open(tmp_path / 'dens.log') as f:
+        assert [r[0] for r in csv.reader(f)] == ['epoch', '0', '1']
+    assert not list(tmp_path.glob('.mesh-*')) and mesh.current() is None
 
 
 def test_trainer_runs_on_cuda_unless_told_the_cpu(monkeypatch):

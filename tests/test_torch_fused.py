@@ -391,13 +391,33 @@ def test_banks_mode_trains_with_all_three_and_the_plain_version():
     assert all(torch.equal(wa[k], wb[k]) for k in wa)
 
 
-def test_fused_steps_refuse_a_mesh():
+def test_fused_steps_take_a_mesh_with_jax_s_errors():
+    """Once refused (ROADMAP A14): on a mesh of 2 the fused steps draw each
+    rank's share of the batch; sharded banks without a mesh, or with a
+    batch the mesh does not divide, raise JAX's ValueErrors."""
+    from challenge_tpu.parallel import mesh as jmesh
+    from challenge_tpu.parallel import train as jtrain
+    from challenge_tpu_torch.parallel.mesh import Mesh
     bundle = _banks_loop().bundle
-    for make in (make_fused_train_step, make_fused_eval_step):
-        with pytest.raises(NotImplementedError, match='ROADMAP A14'):
-            make(bundle, bundle.config, mesh=object())
-        with pytest.raises(NotImplementedError, match='ROADMAP A14'):
-            make(bundle, bundle.config, bank_sharded=True)
+    mesh = Mesh(('cpu', 'cpu'), rank=1)
+    odd = Config(**dict(CFG, batch_size=3))
+    jbundle = JBundle(JVADModel(v=8, base_fsize=8, td_dim=32), SHAPE,
+                      JConfig(**dict(CFG, batch_size=3)))
+    jmesh_2 = jmesh.make_mesh(2)
+    for make, jmake in ((make_fused_train_step, jtrain.make_fused_train_step),
+                        (make_fused_eval_step, jtrain.make_fused_eval_step)):
+        step = make(bundle, bundle.config, mesh=mesh, bank_sharded=True)
+        assert step.features.config.batch_size == CFG['batch_size'] // 2
+        for kw, jkw, config in (
+                (dict(bank_sharded=True), dict(bank_sharded=True),
+                 bundle.config),
+                (dict(mesh=mesh, bank_sharded=True),
+                 dict(mesh=jmesh_2, bank_sharded=True), odd)):
+            with pytest.raises(ValueError) as ref:
+                jmake(jbundle, jbundle.config, **jkw)
+            with pytest.raises(ValueError) as got:
+                make(bundle, config, **kw)
+            assert str(got.value) == str(ref.value)
 
 
 # ------------------------------------------------------------ optimizer

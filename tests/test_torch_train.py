@@ -263,3 +263,37 @@ def test_agc_scheduler_and_swa_match_jax():
     assert state.swa_count == 3
     for k, v in state.swa.items():
         torch.testing.assert_close(v, sum(s[k] for s in seen) / 3)
+
+
+@pytest.mark.slow
+def test_trained_er_improves(tmp_path):
+    """The mirror of tests/test_train.py::test_trained_er_improves: the
+    same corpus (its ``_trained_er_corpus``), vad v3 on 40 mels x 128
+    frames at batch 8, 14 epochs of 25 steps in banks mode on the CPU,
+    and the same assertions: the training chain learns the task (final
+    f1 above 0.4, the loss below 0.6 of the first epoch's) and the final
+    weights improve the challenge ER of ``evaluate()`` on the dev set (the
+    mean down by more than 0.05, at least 2 clips better)."""
+    from test_train import _trained_er_corpus
+
+    from challenge_tpu_torch.evaluate.infer import evaluate
+    from challenge_tpu_torch.models.registry import get_model
+    from challenge_tpu_torch.train.loop import TrainLoop
+    n_frame = 128
+    bgs, voices, onehot = _trained_er_corpus(tmp_path, n_frame=n_frame)
+    banks = build_banks(bgs, voices, onehot, n_frame=n_frame, device='cpu')
+    cfg = Config(model_type='vad', v=3, n_mels=40, n_frame=n_frame,
+                 n_chan=2, batch_size=8, snr=-2, max_voices=3, lr=1e-3)
+    bundle = get_model(cfg, device='cpu')
+    loop = TrainLoop(bundle, banks=banks, val_banks=banks, seed=0)
+    er0 = evaluate(cfg, bundle.module, overlap_hop=32,
+                   eval_dir=str(tmp_path))
+    hist = loop.fit(epochs=14, steps_per_epoch=25, validation_steps=1,
+                    verbose=0)
+    assert hist[-1]['f1_score'] > 0.4, hist[-1]
+    assert hist[-1]['loss'] < 0.6 * hist[0]['loss'], (hist[0], hist[-1])
+    er1 = evaluate(cfg, bundle.module, overlap_hop=32,
+                   eval_dir=str(tmp_path))
+    assert np.isfinite(er1).all() and np.isfinite(er0).all(), (er0, er1)
+    assert float(np.mean(er1)) < float(np.mean(er0)) - 0.05, (er0, er1)
+    assert sum(b < a for a, b in zip(er0, er1)) >= 2, (er0, er1)
