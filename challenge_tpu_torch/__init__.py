@@ -11,10 +11,13 @@ Entry points run on ``cuda`` unless given ``device='cpu'``:
     loop.fit(DevicePipeline(banks, cfg), epochs=1, steps_per_epoch=N)
 """
 
+__version__ = '0.1.0'      # the JAX package's, whose API this mirrors
+
 from challenge_tpu_torch.config import Config
+from challenge_tpu_torch.ops.norms import EPSILON
 from challenge_tpu_torch.data.pipeline import DevicePipeline, build_banks
 from challenge_tpu_torch.models.registry import get_model
 from challenge_tpu_torch.train.loop import TrainLoop
 
-__all__ = ['Config', 'DevicePipeline', 'build_banks', 'get_model',
+__all__ = ['Config', 'DevicePipeline', 'EPSILON', 'build_banks', 'get_model',
            'TrainLoop']

@@ -46,7 +46,7 @@ import os
 import numpy as np
 
 from challenge_tpu_torch.config import Config, config_from_args
-from challenge_tpu_torch.data.pipeline import build_banks
+from challenge_tpu_torch.data.pipeline import DevicePipeline, build_banks
 from challenge_tpu_torch.data.streaming import build_streaming_banks
 from challenge_tpu_torch.device import resolve_device
 from challenge_tpu_torch.models.registry import get_model
@@ -90,6 +90,17 @@ def make_banks(config: Config, training: bool = True, n_classes: int = 3,
                        n_classes=n_classes, one_hot=True,
                        n_frame=config.n_frame, flat_dtype=config.bank_dtype,
                        device=device)
+
+
+def make_dataset(config: Config, training: bool = True, n_classes: int = 3,
+                 device=None) -> DevicePipeline:
+    """An infinite iterator of ready batches on ``device`` (counterpart:
+    ``make_dataset``, cli/sj_train.py:68-73; reference: sj_train.py:74-130):
+    a ``DevicePipeline`` over :func:`make_banks`, resident banks only."""
+    banks = make_banks(config.replace(stream_chunks=0), training, n_classes,
+                       device)
+    return DevicePipeline(banks, config, training, device=device,
+                          variant='sj', n_classes=n_classes)
 
 
 def resume(config: Config, loop: TrainLoop) -> int:

@@ -67,6 +67,15 @@ def label_downsample(y, resolution: int = 32):
     return (y >= 0.5).to(y.dtype)
 
 
+def multiply_label(multiply_factor):
+    """``(x, y) -> (x, y * multiply_factor)``, the labels scaled for
+    MSE-style training (counterpart: labels.py:80; reference:
+    data_utils.py:120-123)."""
+    def _multiply_label(x, y):
+        return x, y * multiply_factor
+    return _multiply_label
+
+
 def speech_enhancement_preprocess(x, y=None):
     """Drop the DC row and keep the real half of a complex spectrogram
     [..., freq, T, chan] (counterpart: ``labels.py:87-99``; reference:

@@ -18,6 +18,11 @@ A batch is made in two steps so that tests can feed JAX's draws to the port:
   spectrogram and the se family's targets, through the se-triple
   kernel (the flat-complex sum with three accumulators).
 
+:func:`sample_batch` is JAX's reference-shaped batch API over these
+(:func:`draw`, then :func:`batch_of`), and :func:`merge_complex_specs`
+its per-sample synthesis in plain tensor code, split in the same way into
+:func:`merge_draws` and :func:`merge_placed`.
+
 The upper bounds of the voice and noise counts are exclusive, as in the
 reference (tf.random.uniform's exclusive maxval, pipeline.py:43,87): a
 ``max_voices``-voice mixture never occurs. The draws follow JAX's
@@ -285,3 +290,199 @@ def synthesize_se(banks: Banks, draws: Draws):
         *synth_args(banks, draws))
     return unflat(full), (_labels(banks, draws), unflat(only_voice),
                           unflat(only_noise))
+
+
+# ------------------------------------------------ the reference-shaped API
+def batch_of(banks: Banks, draws: Draws, n_classes: Optional[int] = None,
+             seperate_noise_voice: bool = False, layout: str = 'ftc',
+             magnitude: bool = False):
+    """Draws -> :func:`sample_batch`'s output, through the synthesis
+    kernel of the route: the flat-complex kernel (B2) for a complex
+    spectrogram, the se triple for ``seperate_noise_voice``, the magnitude
+    kernel (B1/B3) for ``magnitude``. Spectrograms are float32 for float32
+    banks and bfloat16 for bfloat16 and int8 banks."""
+    width = banks.voice_labels.shape[-1]
+    if n_classes is not None and n_classes != width:
+        raise ValueError(f'banks have {width} label classes, not '
+                         f'{n_classes}')
+    if layout not in ('ftc', 'tfc'):
+        raise ValueError(f"layout must be 'ftc' or 'tfc', not {layout!r}")
+    b, nf = draws.bidx.shape[0], draws.n_frame
+    chan = banks.backgrounds.chan
+    if magnitude:
+        if layout != 'tfc' or seperate_noise_voice:
+            raise ValueError('magnitude mode implies time-major output '
+                             "(layout='tfc') without se targets")
+        mag, label = synthesize(banks, draws)      # [B, T, chan/2 * freq]
+        return mag.reshape(b, nf, chan // 2, -1), label
+    if seperate_noise_voice:
+        spec, (label, only_voice, only_noise) = synthesize_se(banks, draws)
+        if layout == 'tfc':
+            spec, only_voice, only_noise = (
+                t.transpose(1, 2) for t in (spec, only_voice, only_noise))
+        return spec, (label, only_voice, only_noise)
+    flat, label = synthesize_complex(banks, draws)
+    spec = flat.reshape(b, nf, chan, -1).transpose(2, 3)   # [B, T, f, c]
+    return (spec if layout == 'tfc' else spec.transpose(1, 2)), label
+
+
+def sample_batch(gen: torch.Generator, banks: Banks, batch_size: int,
+                 n_frame: int, n_classes: int = 3, max_voices: int = 7,
+                 max_noises: int = 2, min_ratio: float = 1.0,
+                 min_noise_ratio: float = 1 / 2, snr: float = -20.0,
+                 seperate_noise_voice: bool = False, layout: str = 'ftc',
+                 magnitude: bool = False):
+    """A whole training batch on the banks' device (counterpart:
+    ``sample_batch``, mixture.py:313-594): :func:`draw` with ``gen``, then
+    :func:`batch_of`. Returns ``(spec [B, freq, n_frame, chan], label [B,
+    max_voices, n_frame, n_classes])``, with ``layout='tfc'`` the spec as
+    [B, n_frame, freq, chan]; with ``seperate_noise_voice`` the reference's
+    ``(spec, (label, only_voice, only_noise))``; with ``magnitude=True``
+    (needs 'tfc') ``|spec|`` [B, n_frame, chan/2, freq]. JAX's
+    ``magnitude='flat'`` (its lane-padded layout) and ``use_pallas``
+    have no counterpart: on the card the kernel always runs, on the CPU its
+    plain version."""
+    d = draw(gen, banks, batch_size, n_frame, max_voices=max_voices,
+             max_noises=max_noises, min_ratio=min_ratio,
+             min_noise_ratio=min_noise_ratio, snr=snr)
+    return batch_of(banks, d, n_classes, seperate_noise_voice, layout,
+                    magnitude)
+
+
+class MergeDraws(NamedTuple):
+    """The random choices of one :func:`merge_complex_specs` sample: the
+    background window's start, the voice count, each voice's mix ratio and
+    window offset [V], the noise count and each noise's ratio and offset
+    [N] (ratios float32, the rest int32)."""
+    bg_offset: torch.Tensor
+    n_voices: torch.Tensor
+    voice_ratios: torch.Tensor
+    voice_offsets: torch.Tensor
+    n_noises: Optional[torch.Tensor] = None
+    noise_ratios: Optional[torch.Tensor] = None
+    noise_offsets: Optional[torch.Tensor] = None
+
+
+def merge_draws(gen: torch.Generator, n_voices: int, n_frame: int,
+                bg_len: int, voice_len: int, n_noises: int = 0,
+                noise_len: int = 0, min_ratio: float = 2 / 3,
+                min_noise_ratio: float = 1 / 2,
+                snr: float = -20) -> MergeDraws:
+    """Every random choice of :func:`merge_complex_specs` for ``n_voices``
+    voice and ``n_noises`` noise slots (mixture.py:168-224): the tiled
+    background's window start, the voice count in [1, V) (1 for one
+    slot), per voice a ratio 10**-U(0, -snr/10) and a padded-crop offset,
+    the noise count in [0, N), per noise a ratio 10**-U(0, 2) and an
+    inclusive-crop offset."""
+    dev = gen.device
+
+    def ints(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+    n_tile = -(-n_frame // max(bg_len, 1))
+    bg_offset = _dyn_randint(gen, ints(n_tile * bg_len - n_frame + 1))
+    count = (torch.randint(1, n_voices, (), generator=gen, device=dev)
+             if n_voices > 1 else torch.ones((), dtype=torch.int64,
+                                             device=dev))
+    ratios = torch.pow(10.0, -torch.rand((n_voices,), generator=gen,
+                                         device=dev) * (-snr / 10.0))
+    offsets, _ = _placement_draw(gen, ints([voice_len] * n_voices), n_frame,
+                                 min_ratio, crop_style=False)
+    if n_noises <= 0:
+        return MergeDraws(bg_offset, count.to(torch.int32), ratios, offsets)
+    n_count = torch.randint(0, n_noises, (), generator=gen, device=dev)
+    n_ratios = torch.pow(10.0, -2.0 * torch.rand((n_noises,), generator=gen,
+                                                 device=dev))
+    n_offsets, _ = _placement_draw(gen, ints([noise_len] * n_noises),
+                                   n_frame, min_noise_ratio, crop_style=True)
+    return MergeDraws(bg_offset, count.to(torch.int32), ratios, offsets,
+                      n_count.to(torch.int32), n_ratios, n_offsets)
+
+
+def _windows(clips, length: int, offsets, n_frame: int, min_ratio: float):
+    """Each clip's padded-crop window [K, freq, n_frame, chan]: clip frame
+    j lands at ``j + pad - offset``, zeros elsewhere (mixture.py:91-101)."""
+    pad = max(n_frame - int(torch.floor(torch.tensor(
+        min_ratio, dtype=torch.float32) * float(length))), 0)
+    idx = (torch.arange(n_frame, device=clips.device)[None, :]
+           + (offsets.long() - pad)[:, None])             # [K, n_frame]
+    valid = (idx >= 0) & (idx < length)
+    idx = idx.clamp(0, max(length - 1, 0))
+    win = torch.stack([c[:, i] for c, i in zip(clips, idx)])
+    return win * valid[:, None, :, None].to(clips.dtype)
+
+
+def merge_placed(background, voices_and_labels, noises, draws: MergeDraws,
+                 n_frame: int = 300, n_classes: int = 3,
+                 min_ratio: float = 2 / 3, min_noise_ratio: float = 1 / 2,
+                 seperate_noise_voice: bool = False, bg_len=None,
+                 voice_lens=None, noise_lens=None):
+    """:func:`merge_complex_specs` for the given ``draws``: the background
+    window, each voice's window and frame labels, the sequential overlap
+    rejection, the weighted sums (mixture.py:170-227). Plain tensor code,
+    as in JAX (no kernel)."""
+    voices, labels = voices_and_labels
+    tb, v, tv = background.shape[1], voices.shape[0], voices.shape[2]
+    bg_len = tb if bg_len is None else int(bg_len)
+    voice_len = tv if voice_lens is None else int(max(voice_lens))
+    dev = background.device
+    t = torch.arange(n_frame, device=dev)
+    spec = background[:, (draws.bg_offset.long() + t) % max(bg_len, 1)]
+    only_noise = spec
+    wins = _windows(voices, voice_len, draws.voice_offsets, n_frame,
+                    min_ratio)
+    frame_mask = (wins.amax(dim=(1, 3)) > 0).float()        # [V, n_frame]
+    l_frames = frame_mask[:, :, None] * labels[:, None, :]  # [V, n_frame, C]
+    active = torch.arange(v, device=dev) < draws.n_voices
+    accept = _accept_scan(l_frames[None], active[None])[0]
+    if l_frames.shape[-1] != n_classes:
+        raise ValueError(f'labels have {l_frames.shape[-1]} classes, not '
+                         f'{n_classes}')
+    voice_sum = torch.einsum('v,vfnc->fnc', accept * draws.voice_ratios,
+                             wins)
+    spec = spec + voice_sum
+    label = l_frames * accept[:, None, None]
+    if noises is not None:
+        tn = noises.shape[2]
+        noise_len = tn if noise_lens is None else int(max(noise_lens))
+        nwins = _windows(noises, noise_len, draws.noise_offsets, n_frame,
+                         min_noise_ratio)
+        n_active = (torch.arange(noises.shape[0], device=dev)
+                    < draws.n_noises).float()
+        noise_sum = torch.einsum('x,xfnc->fnc',
+                                 n_active * draws.noise_ratios, nwins)
+        spec = spec + noise_sum
+        only_noise = only_noise + noise_sum
+    if seperate_noise_voice:
+        return spec, (label, voice_sum, only_noise)
+    return spec, label
+
+
+def merge_complex_specs(gen: torch.Generator, background, voices_and_labels,
+                        noises=None, n_frame: int = 300, n_classes: int = 3,
+                        min_ratio: float = 2 / 3,
+                        min_noise_ratio: float = 1 / 2, snr: float = -20,
+                        seperate_noise_voice: bool = False, bg_len=None,
+                        voice_lens=None, noise_lens=None):
+    """One sample with the reference's semantics (counterpart:
+    ``merge_complex_specs``, mixture.py:134-229; reference:
+    pipeline.py:6-110): background [freq, Tb, chan], ``(voices [V, freq,
+    Tv, chan], labels [V, n_classes])``, noises [N, freq, Tn, chan] ->
+    ``(spec [freq, n_frame, chan], label [V, n_frame, n_classes])``, or
+    with ``seperate_noise_voice`` ``(spec, (label, only_voice,
+    only_noise))``. Lengths default to the padded extents, as the
+    reference's padded batches see them. :func:`merge_draws` with ``gen``,
+    then :func:`merge_placed`; the argument order, the defaults and the
+    misspelled ``seperate_noise_voice`` are JAX's."""
+    voices = voices_and_labels[0]
+    draws = merge_draws(
+        gen, voices.shape[0], n_frame,
+        background.shape[1] if bg_len is None else int(bg_len),
+        voices.shape[2] if voice_lens is None else int(max(voice_lens)),
+        0 if noises is None else noises.shape[0],
+        0 if noises is None else (noises.shape[2] if noise_lens is None
+                                  else int(max(noise_lens))),
+        min_ratio, min_noise_ratio, snr)
+    return merge_placed(background, voices_and_labels, noises, draws,
+                        n_frame, n_classes, min_ratio, min_noise_ratio,
+                        seperate_noise_voice, bg_len, voice_lens, noise_lens)

@@ -45,8 +45,8 @@ from challenge_tpu_torch.data.labels import (
     speech_enhancement_preprocess, stereo_mono, to_density_labels,
     to_frame_labels)
 from challenge_tpu_torch.data.mixture import (
-    Banks, draw, synthesize, synthesize_complex, synthesize_mel,
-    synthesize_se)
+    Banks, draw, sample_batch, synthesize, synthesize_complex,
+    synthesize_mel, synthesize_se)
 from challenge_tpu_torch.data.specset import build_bank, remap_labels
 from challenge_tpu_torch.device import resolve_device
 from challenge_tpu_torch.ops.augment import (
@@ -269,6 +269,19 @@ class FeatureFn:
         return self.features(mag, y, tmask, fmask)
 
 
+def make_feature_fn(config: Config, training: bool = True,
+                    variant: str = 'sj', n_classes: Optional[int] = None,
+                    fused_mel=None, device=None) -> FeatureFn:
+    """The ``(gen, banks) -> (x, y)`` batch function (counterpart:
+    ``make_feature_fn``, pipeline.py:106-339): :class:`FeatureFn`.
+    ``fused_mel`` None is JAX's default, off. JAX's ``jit``,
+    ``use_pallas`` and ``fused_mag`` are TPU mechanics: on the card the
+    synthesis kernel always runs, and the magnitude path is the one of
+    n_chan 2."""
+    return FeatureFn(config, training, device, fused_mel=bool(fused_mel),
+                     variant=variant, n_classes=n_classes)
+
+
 class DevicePipeline:
     """Infinite iterator of on-device (x, y) batches of :class:`FeatureFn`
     (``variant`` and ``n_classes`` as there) from ``banks``, which must
@@ -295,3 +308,58 @@ class DevicePipeline:
     def take(self, n: int):
         it = iter(self)
         return [next(it) for _ in range(n)]
+
+
+class _RawPipeline:
+    """Reference-shaped raw pipeline (counterpart: ``_RawPipeline``,
+    pipeline.py:368-395): yields single ``(spec [freq, n_frame, chan],
+    label [max_voices, n_frame, n_classes])`` samples, each a
+    ``sample_batch`` of one, as the reference's ``make_pipeline`` dataset
+    does (pipeline.py:113-175). A bare pipeline takes the
+    ``min_ratio=2/3`` default of ``merge_complex_specs`` (the reference's
+    pipeline.py:12 through ``**kwargs``)."""
+
+    def __init__(self, banks: Banks, n_frame: int, max_voices: int,
+                 max_noises: int, n_classes: int, seed: int = 0,
+                 device=None, **kwargs):
+        self.banks = banks
+        self.gen = torch.Generator(device=resolve_device(device))
+        self.gen.manual_seed(seed)
+        kwargs.setdefault('min_ratio', 2 / 3)
+        self.kwargs = dict(batch_size=1, n_frame=n_frame,
+                           n_classes=n_classes, max_voices=max_voices,
+                           max_noises=max_noises, **kwargs)
+
+    def __iter__(self):
+        while True:
+            spec, label = sample_batch(self.gen, self.banks, **self.kwargs)
+            yield spec[0], (tuple(t[0] for t in label)
+                            if isinstance(label, tuple) else label[0])
+
+    def take(self, n: int):
+        it = iter(self)
+        return [next(it) for _ in range(n)]
+
+
+def make_pipeline(backgrounds, voices, labels, noises=None,
+                  n_frame: int = 300, max_voices: int = 10,
+                  max_noises: int = 10, n_classes: int = 3, seed: int = 0,
+                  device=None, **kwargs) -> _RawPipeline:
+    """Ragged host lists of [freq, T, chan] spectrograms and one-hot labels
+    [n, n_classes] in, an iterable of raw ``(complex spec, per-voice
+    labels)`` samples out (counterpart: ``make_pipeline``,
+    pipeline.py:398-413; reference: pipeline.py:113-175), on ``device``
+    (default ``cuda``). ``kwargs`` go to ``sample_batch``."""
+    if len(backgrounds[0].shape) != 3:
+        raise ValueError('each spec must be a 3D-tensor')
+    if len(voices) != len(labels):
+        raise ValueError('voices and labels differ in length')
+    labels = np.asarray(labels)
+    if labels[0].ndim != 1 or labels[0].shape[0] != n_classes:
+        raise ValueError('labels must be in the form of [n_samples, '
+                         'n_classes]')
+    banks = build_banks(backgrounds, voices, labels, noises,
+                        n_classes=n_classes, one_hot=False, n_frame=n_frame,
+                        device=device)
+    return _RawPipeline(banks, n_frame, max_voices, max_noises, n_classes,
+                        seed=seed, device=device, **kwargs)

@@ -202,6 +202,27 @@ def clip_scores(config, module, path: str, overlap_hop: int = 512,
                           overlap_hop, clip_index, mesh)
 
 
+def make_infer_fn(bundle_or_module, config, overlap_hop: int = 512):
+    """The per-file chain (counterpart: ``make_infer_fn``, infer.py:217):
+    ``infer(spec[, clip_seed])``, complex spectrogram [freq, T, chan*2] ->
+    the thresholded 0/1 grid [T', n_classes] (float32, on the model's
+    device), :func:`spec_to_scores` then ``>= 0.5``, as the per-clip path
+    of :func:`evaluate` grades each clip. For n_chan > 3 ``clip_seed``
+    (the clip's index) is required, as in JAX: it seeds the channel merge.
+    JAX's ``variables`` argument has no counterpart: the module holds its
+    weights."""
+    module = getattr(bundle_or_module, 'module', bundle_or_module)
+
+    def infer(spec, clip_seed=None):
+        if config.n_chan > 3 and clip_seed is None:
+            raise ValueError('n_chan > 3 needs the clip_seed of the clip '
+                             '(its channel merge factors)')
+        return (spec_to_scores(config, module, spec, overlap_hop,
+                               0 if clip_seed is None else clip_seed)
+                >= 0.5).float()
+    return infer
+
+
 # ------------------------------------------------- the one-program dev set
 class BatchedEvalIneligible(Exception):
     """A model whose outputs do not cover every spectrogram frame (eff v5's

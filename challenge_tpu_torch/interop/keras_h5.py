@@ -81,6 +81,36 @@ def read_keras_h5(path: str) -> List[Tuple[str, List[Tuple[str, np.ndarray]]]]:
     return layers
 
 
+def export_keras_legacy_h5(model, path: str) -> None:
+    """Write a Keras model's weights in the Keras-2 legacy HDF5 layout
+    (root attrs ``layer_names``, per-layer attrs ``weight_names`` carrying
+    the real sublayer paths), the format reference-era checkpoints are in
+    (counterpart: ``export_keras_legacy_h5``, keras_h5.py:73). Duck-typed:
+    ``model.layers``, each with ``.name`` and ``.weights``, each weight
+    array-like with a ``path`` or ``name``. Nested Model layers flatten
+    into one group, as Keras 2 did."""
+    import h5py
+
+    with h5py.File(path, 'w') as f:
+        names = []
+        for layer in model.layers:
+            weights = layer.weights
+            if not weights:
+                continue
+            names.append(layer.name)
+            g = f.create_group(layer.name)
+            wnames = []
+            for i, w in enumerate(weights):
+                wn = getattr(w, 'path', None) or getattr(w, 'name', None) \
+                    or f'{layer.name}/weight_{i}'
+                if not wn.endswith(':0'):
+                    wn = wn + ':0'
+                g.create_dataset(wn, data=np.asarray(w))
+                wnames.append(wn.encode())
+            g.attrs['weight_names'] = wnames
+        f.attrs['layer_names'] = [n.encode() for n in names]
+
+
 # ------------------------------------------------------------- unit plans
 def _vad_unit_plan(v: int, vad_variant: bool = True,
                    prefix: str = '') -> List[Tuple[str, str]]:

@@ -164,6 +164,13 @@ def stft(wav: torch.Tensor):
         (frames @ sin_m).transpose(-1, -2)
 
 
+def stft_magnitude(wav: torch.Tensor) -> torch.Tensor:
+    """|STFT| of float32 [chan, samples]: [chan, freq, n_frames]
+    (counterpart: ``stft_magnitude``, dsp.py:197)."""
+    real, imag = stft(wav)
+    return torch.sqrt(real * real + imag * imag)
+
+
 # ----------------------------------------------------------------- load_wav
 def rms_normalize(wav: torch.Tensor) -> torch.Tensor:
     """wav / (10 * rms(wav)) (reference: data_utils.py:32-34)."""
@@ -183,12 +190,20 @@ def wav_to_spec(wav: torch.Tensor, rate: int) -> torch.Tensor:
     return spec.reshape(*spec.shape[:2], -1)
 
 
-def load_wav(path: str, device=None) -> torch.Tensor:
+def load_wav_device(path: str, device=None) -> torch.Tensor:
     """WAV file -> complex spectrogram ``[freq, time, chan*2]`` on
-    ``device`` (default ``cuda``). 16-bit PCM goes to the device as int16
-    and is converted there."""
+    ``device`` (default ``cuda``) (counterpart: ``load_wav_device``,
+    dsp.py:246). 16-bit PCM goes to the device as int16 and is converted
+    there."""
     device = resolve_device(device)
     raw, rate = read_wav_raw(path)
     if raw is None:
         raw, rate = read_wav(path)
     return wav_to_spec(torch.from_numpy(raw).to(device), rate)
+
+
+def load_wav(path: str, device=None) -> torch.Tensor:
+    """:func:`load_wav_device`. JAX's ``load_wav`` returns the same
+    spectrogram as a numpy array (dsp.py:259); the port's returns the
+    device tensor."""
+    return load_wav_device(path, device)

@@ -49,6 +49,33 @@ def mel_filterbank(num_mel_bins: int = 80, num_spectrogram_bins: int = 257,
     return weights
 
 
+# JAX's name of the numpy matrix (mel.py:27); its ``mel_filterbank`` is the
+# device copy, which the port makes where it is used
+linear_to_mel_weight_matrix = mel_filterbank
+
+
+def magphase_to_mel(num_mel_bins: int = 80, num_spectrogram_bins: int = 257,
+                    sample_rate: int = 16000, **kwargs):
+    """``(x[, y]) -> mel[, y]``: a magphase [B, freq, T, chan*2] or
+    [freq, T, chan*2], its phase half dropped, projected to [B, n_mels, T,
+    chan] or [n_mels, T, chan] (counterpart: ``magphase_to_mel``,
+    mel.py:66-89; reference: transforms.py:51-77)."""
+    melm_np = mel_filterbank(num_mel_bins, num_spectrogram_bins, sample_rate,
+                             **kwargs)
+
+    def _magphase_to_mel(x, y=None):
+        melm = torch.tensor(melm_np, device=x.device)
+        x = x[..., :x.shape[-1] // 2]
+        if x.ndim == 4:
+            out = torch.einsum('bftc,fm->bmtc', x, melm)
+        elif x.ndim == 3:
+            out = magnitude_to_mel(x, melm)
+        else:
+            raise ValueError('x.ndim must be 3 or 4')
+        return out if y is None else (out, y)
+    return _magphase_to_mel
+
+
 def magnitude_to_mel(mag: torch.Tensor, melm: torch.Tensor) -> torch.Tensor:
     """Unbatched magnitude [freq, T, chan] -> mel [n_mels, T, chan]
     (counterpart: ``magphase_to_mel`` on the magnitude half of a magphase,

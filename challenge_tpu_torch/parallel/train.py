@@ -19,8 +19,11 @@ program, ``steps_per_call`` steps to a dispatch, each step of
   states, so a replay draws what the eager step would draw from their
   state, and reseeding them (``manual_seed``) between replays holds.
 
-There is no fallback: a failure to capture or replay raises. The eval step
-stays eager (ROADMAP A14).
+The eval step (:class:`FusedEvalStep`: draws, synthesis, features and the
+eval-mode forward, loss and metrics) is one CUDA graph too, with the
+phase's generator registered. Both use ``train.graph.StepGraphs``, the
+scheme of the iterator-mode steps. There is no fallback: a failure to
+capture or replay raises.
 
 With a ``mesh`` (``parallel.mesh``; JAX: ``shard_map`` synthesis, then the
 step partitioned over the mesh) each rank draws and synthesizes its own
@@ -40,12 +43,10 @@ from typing import Optional
 
 import dataclasses
 
-import torch
-
 from challenge_tpu_torch.config import Config
 from challenge_tpu_torch.data.pipeline import FeatureFn
 from challenge_tpu_torch.models.registry import ModelBundle
-from challenge_tpu_torch.ops import cuda
+from challenge_tpu_torch.train.graph import StepGraphs
 from challenge_tpu_torch.train.state import (
     accumulate_grads, make_eval_step, make_grad_update, make_train_step,
     mean_metrics, reduce_metrics)
@@ -109,12 +110,10 @@ class FusedTrainStep:
     stochastic-depth generator of a model that takes one. Returns each
     metric's mean over the call's steps (parallel/train.py:211-216).
 
-    On a CUDA device the step is a CUDA graph, bound at the first call to
-    the state, banks and generators it was given; a call with others
-    raises. The first call runs its first step eagerly on the graph's
-    stream, which lets cuDNN pick its algorithms, the optimizer make its
-    state and the kernels load, then captures the next step (the capture
-    empties the allocator's cache first) and replays it for the rest of
+    On a CUDA device one step is a CUDA graph (``train.graph``), bound to
+    the state, banks and generators it was captured with; a call with
+    others captures anew. The first call runs its first step eagerly on
+    the graph's stream and captures it, then replays it for the rest of
     the call. Each replay adds the kernel launches it captured to
     ``ops.cuda.LAUNCHES`` and one to ``state.step``."""
 
@@ -130,7 +129,7 @@ class FusedTrainStep:
         if steps_per_call is None:
             steps_per_call = config.steps_per_call
         self.steps_per_call = max(int(steps_per_call), 1)
-        self._graph = None     # (graph, its metrics, its launches, bound to)
+        self.graphs = StepGraphs(lambda refs: refs[1:])
 
     def one(self, state, banks, gen, dropout_gen=None):
         """One optimizer step, eager; returns its metrics."""
@@ -151,57 +150,42 @@ class FusedTrainStep:
         if (banks.backgrounds.flat.device.type == 'cpu'
                 or self.mesh is not None):
             return self.plain(state, banks, gen, dropout_gen)
-        bound = (state, banks, gen, dropout_gen)
-        steps = []
-        if self._graph is None:
-            steps.append(self._capture(state, banks, gen, dropout_gen))
-        elif any(a is not b for a, b in zip(bound, self._graph[3])):
-            raise ValueError('the fused step replays the graph of the state, '
-                             'banks and generators of its first call')
-        graph, outputs, launches, _ = self._graph
-        while len(steps) < self.steps_per_call:
-            graph.replay()
-            state.step += 1
-            cuda.LAUNCHES.update(launches)
-            steps.append({k: v.clone() for k, v in outputs.items()})
+        steps = [self.graphs(
+            lambda state, _, banks, gen, dropout_gen:
+            self.one(state, banks, gen, dropout_gen),
+            state, None, banks, gen, dropout_gen)
+            for _ in range(self.steps_per_call)]
         return mean_metrics(steps)
-
-    def _capture(self, state, banks, gen, dropout_gen):
-        """Run one step eagerly on a side stream, then capture the next
-        into ``self._graph``; returns the eager step's metrics."""
-        stream = torch.cuda.Stream(device=banks.backgrounds.flat.device)
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            metrics = self.one(state, banks, gen, dropout_gen)
-        torch.cuda.current_stream().wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        for g in (gen, dropout_gen):
-            if g is not None:
-                graph.register_generator_state(g)
-        step = state.step
-        with cuda.capture_launches() as launches, \
-                torch.cuda.graph(graph, stream=stream):
-            outputs = self.one(state, banks, gen, dropout_gen)
-        state.step = step                    # the capture ran nothing
-        self._graph = (graph, outputs, launches,
-                       (state, banks, gen, dropout_gen))
-        return metrics
 
 
 class FusedEvalStep:
     """``step(state, banks, gen) -> metrics``: one validation batch drawn
     from ``banks`` with ``gen`` (on a mesh the rank's share), then the
-    inference-mode forward, loss and metrics (the global batch's); eager
-    on every device."""
+    inference-mode forward, loss and metrics (the global batch's). On a
+    CUDA device the draws, the synthesis kernel and the eval step are one
+    CUDA graph with ``gen`` registered, bound as :class:`FusedTrainStep`'s;
+    eager on the CPU and on a mesh (:meth:`plain`)."""
 
     def __init__(self, bundle: ModelBundle, config: Config, loss_fn=None,
                  variant: str = 'sj', mesh=None, bank_sharded: bool = False):
+        self.mesh = mesh
         self.features = _mesh_features(config, mesh, False, variant,
                                        bundle.device, bank_sharded)
         self.eval_step = make_eval_step(bundle, loss_fn, mesh)
+        self.graphs = StepGraphs(lambda refs: refs[1:])
+
+    def plain(self, state, banks, gen):
+        """The plain version, eager."""
+        return self.eval_step.plain(state, self.features(gen, banks))
 
     def __call__(self, state, banks, gen):
-        return self.eval_step(state, self.features(gen, banks))
+        if (banks.backgrounds.flat.device.type == 'cpu'
+                or self.mesh is not None):
+            return self.plain(state, banks, gen)
+        return self.graphs(
+            lambda state, _, banks, gen: self.eval_step.run(
+                state, self.features(gen, banks)),
+            state, None, banks, gen)
 
 
 def make_fused_train_step(bundle: ModelBundle, config: Config, loss_fn=None,

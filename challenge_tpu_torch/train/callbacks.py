@@ -29,6 +29,7 @@ import numpy as np
 
 from challenge_tpu_torch.parallel import mesh as mesh_lib
 from challenge_tpu_torch.train import checkpoint
+from challenge_tpu_torch.train.optim import set_learning_rate
 from challenge_tpu_torch.train.state import swa_update
 
 
@@ -190,9 +191,7 @@ class LearningRateScheduler(Callback):
         self.schedule = schedule
 
     def on_epoch_begin(self, epoch):
-        lr = self.schedule(epoch)
-        for group in self.loop.state.optimizer.param_groups:
-            group['lr'].fill_(lr)
+        set_learning_rate(self.loop.state.optimizer, self.schedule(epoch))
 
 
 class ReduceLROnPlateau(Callback):
@@ -222,8 +221,9 @@ class ReduceLROnPlateau(Callback):
         self.wait += 1
         if self.wait >= self.patience:
             self.wait = 0
-            for group in self.loop.state.optimizer.param_groups:
-                group['lr'].fill_(float(group['lr']) * self.factor)
+            optimizer = self.loop.state.optimizer
+            set_learning_rate(optimizer, float(
+                optimizer.param_groups[0]['lr']) * self.factor)
 
 
 class EvalCallback(Callback):

@@ -8,7 +8,9 @@ the host does not wait on the card between steps. Two sources of batches:
 * iterator mode: ``fit(train_iter, ...)`` consumes (x, y) batches, e.g.
   from a :class:`~challenge_tpu_torch.data.pipeline.DevicePipeline`, one
   train step each (``config.steps_per_call`` does not apply, and
-  ``config.grad_accum`` > 1 raises, as in JAX);
+  ``config.grad_accum`` > 1 raises, as in JAX). On the card the train and
+  eval steps are CUDA graphs (``train.state.TrainStep``, ``EvalStep``),
+  each batch copied into the graph's buffers; eager on the CPU;
 * banks mode: ``TrainLoop(bundle, banks=, val_banks=)`` runs JAX's fused
   step (``parallel.train``): draws, synthesis, features, forward,
   backward and the update of ``config.grad_accum`` microbatches a step,

@@ -5,8 +5,9 @@ sj_train.py:133-155, 434-442, utils.py:140-288, 350-366).
 Every optimizer keeps each parameter group's learning rate
 ``group['lr']`` as a 0-dim tensor on its parameters' device, in their
 dtype, so a captured step reads it anew at each replay; change it with
-``group['lr'].fill_(...)``. Each clips the gradient's values at
-``clipvalue`` first, as Keras' ``clipvalue=`` does."""
+:func:`set_learning_rate`, which fills it in place. Each clips the
+gradient's values at ``clipvalue`` first, as Keras' ``clipvalue=``
+does."""
 
 from __future__ import annotations
 
@@ -257,6 +258,16 @@ def _device_lr(optimizer: torch.optim.Optimizer) -> None:
         p = group['params'][0]
         group['lr'] = torch.tensor(float(group['lr']), dtype=p.dtype,
                                    device=p.device)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr):
+    """Fill every parameter group's device ``lr`` with ``lr`` in place,
+    so a captured step reads it at its next replay (counterpart:
+    ``set_learning_rate``, optim.py:228, which overwrites the injected
+    hyperparameter). Returns ``optimizer``."""
+    for group in optimizer.param_groups:
+        group['lr'].fill_(lr)
+    return optimizer
 
 
 def _clipped_grads(group):

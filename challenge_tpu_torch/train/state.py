@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from challenge_tpu_torch.models.layers import cross_replica, remat_contexts
 from challenge_tpu_torch.models.registry import ModelBundle
 from challenge_tpu_torch.train import metrics as metrics_lib
+from challenge_tpu_torch.train.graph import StepGraphs, on_cuda
 from challenge_tpu_torch.train.losses import get_loss
 from challenge_tpu_torch.train.optim import (
     adaptive_clip_grad, make_optimizer, transposed_weights)
@@ -218,40 +219,86 @@ def accumulate_grads(grad_fn, module: nn.Module, batches: Iterable,
     return grads, mean_metrics(metrics)
 
 
-def make_train_step(bundle: ModelBundle, loss_fn=None, mesh=None):
-    """``train_step(state, (x, y), gen=None) -> metrics``; updates
-    ``state`` in place. ``gen``, ``loss_fn`` and ``mesh`` as for
-    :func:`make_grad_update`; on a mesh ``(x, y)`` is the rank's share and
-    the metrics are the global batch's."""
-    grad_fn, update_fn = make_grad_update(bundle, loss_fn, mesh)
+class TrainStep:
+    """``step(state, (x, y), gen=None) -> metrics``, the iterator-mode
+    train step (counterpart: ``make_train_step``'s ``jax.jit``,
+    state.py:132-150); updates ``state`` in place. On a module on the CPU,
+    or on a ``mesh`` (gloo's collectives cannot be captured), it runs
+    :meth:`plain`; on a CUDA module it is a CUDA graph a batch signature
+    (``train.graph``), with the stochastic-depth generator ``gen``
+    registered. The mode (training) and the loss's ``needs_params``
+    penalty are fixed before the capture, so the graph holds them."""
 
-    def train_step(state: TrainState, batch, gen=None):
-        grads, metrics = grad_fn(state.module, batch, gen)
-        update_fn(state, grads)
-        return reduce_metrics(metrics, mesh)
+    def __init__(self, bundle: ModelBundle, loss_fn=None, mesh=None):
+        self.grad_fn, self.update_fn = make_grad_update(bundle, loss_fn,
+                                                        mesh)
+        self.mesh = mesh
+        self.needs_gen = bundle.needs_dropout_gen
+        self.graphs = StepGraphs(lambda refs: refs)
 
-    return train_step
+    def run(self, state, batch, gen=None):
+        """One eager step; on a mesh the rank's metrics."""
+        grads, metrics = self.grad_fn(state.module, batch, gen)
+        self.update_fn(state, grads)
+        return metrics
+
+    def plain(self, state, batch, gen=None):
+        """The eager step; on a mesh the global batch's metrics."""
+        return reduce_metrics(self.run(state, batch, gen), self.mesh)
+
+    def __call__(self, state, batch, gen=None):
+        if self.mesh is not None or not on_cuda(state):
+            return self.plain(state, batch, gen)
+        return self.graphs(self.run, state, batch,
+                           gen if self.needs_gen else None)
 
 
-def make_eval_step(bundle: ModelBundle, loss_fn=None, mesh=None):
-    """Validation step: inference-mode forward + loss + metrics; the loss
-    of a ``needs_params`` ``loss_fn`` includes its penalty, as JAX's
-    does. On a ``mesh`` the batch is the rank's share and the metrics are
-    the global batch's."""
-    config = bundle.config
-    loss_fn = loss_fn or get_loss(config)
-    metric_fns = metrics_lib.batch_metrics(config)
+class EvalStep:
+    """``step(state, (x, y)) -> metrics``, the validation step
+    (counterpart: ``make_eval_step``'s ``jax.jit``, state.py:153-172):
+    inference-mode forward, loss and metrics; the loss of a
+    ``needs_params`` ``loss_fn`` includes its penalty, as JAX's does. As
+    :class:`TrainStep`: eager on the CPU and on a ``mesh`` (the batch the
+    rank's share, the metrics the global batch's), a CUDA graph a batch
+    signature on the card, captured in eval mode."""
+
+    def __init__(self, bundle: ModelBundle, loss_fn=None, mesh=None):
+        self.loss_fn = loss_fn or get_loss(bundle.config)
+        self.metric_fns = metrics_lib.batch_metrics(bundle.config)
+        self.mesh = mesh
+        self.graphs = StepGraphs()
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch):
+    def run(self, state, batch):
+        """One eager step; on a mesh the rank's metrics."""
         x, y = batch
         state.module.eval()
         out = state.module(x)
-        loss, parts = _loss_of(loss_fn, y, out, state.module)
-        return reduce_metrics(_metrics(metric_fns, loss, parts, y, out),
-                              mesh)
+        loss, parts = _loss_of(self.loss_fn, y, out, state.module)
+        return _metrics(self.metric_fns, loss, parts, y, out)
 
-    return eval_step
+    def plain(self, state, batch):
+        """The eager step; on a mesh the global batch's metrics."""
+        return reduce_metrics(self.run(state, batch), self.mesh)
+
+    def __call__(self, state, batch):
+        if self.mesh is not None or not on_cuda(state):
+            return self.plain(state, batch)
+        return self.graphs(self.run, state, batch)
+
+
+def make_train_step(bundle: ModelBundle, loss_fn=None,
+                    mesh=None) -> TrainStep:
+    """The train step, :class:`TrainStep`; ``gen``, ``loss_fn`` and
+    ``mesh`` as for :func:`make_grad_update`; on a mesh ``(x, y)`` is the
+    rank's share and the metrics are the global batch's."""
+    return TrainStep(bundle, loss_fn, mesh)
+
+
+def make_eval_step(bundle: ModelBundle, loss_fn=None,
+                   mesh=None) -> EvalStep:
+    """The validation step, :class:`EvalStep`."""
+    return EvalStep(bundle, loss_fn, mesh)
 
 
 @torch.no_grad()

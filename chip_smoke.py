@@ -227,6 +227,28 @@ without the result line:
    graphed vad v8 steps, writing a non-empty trace, with ``StepTimer``
    around each, its step within 10% of phase 5g's ``fused_step_ms``;
    printed on the ``MESH`` line;
+5l. graphed iterator and validation steps (``train/state.py``
+   ``TrainStep``, ``EvalStep``; ``train/graph.py``): the density trainer's
+   defaults (on the 2,048-frame float32 banks, its loss with the l2
+   penalty, AdaBelief), vad v8 and eff B0 v1 (the registered
+   stochastic-depth generator) at full width through ``TrainLoop.fit`` over
+   ``DevicePipeline``, under cuDNN's deterministic algorithms, graphed and
+   plain (``.plain``) from one seed: the capture's step and 2 replays, a
+   validation capture and 1 replay, then ``set_weights`` (the weights
+   halved, in place), a step, ``save_train_state``, a step,
+   ``restore_train_state``, a step and a validation step; every weight,
+   BN statistic, optimizer slot and step count and every logged value
+   equal at 0.0, one capture a step object (no recapture), one
+   ``synth_mag_f32`` a batch; then graphed against eager in turns (graph,
+   eager, eager, graph), 10 steps each with the pipeline, as ``fit`` runs
+   them (``iter_step_ms``, ``eager_iter_step_ms``). The graphed
+   ``FusedEvalStep`` of vad v8 against its plain version from one seed,
+   3 calls, at 0.0, one launch captured and 3 counted, and timed in turns
+   (``fused_eval_ms``, ``eager_fused_eval_ms``). ``mixture.sample_batch``
+   on float32, bfloat16 and int8 banks in both layouts, magnitude mode and
+   the se triple at the main path's batch: each route's kernel launched
+   once (``check_launches``) and its output equal to the plain version's
+   at 0.0. Printed on the ``ITER`` line;
 6. times: each kernel and its plain version in turns (plain, kernel,
    kernel, plain) with CUDA events, their bounds from this run's draws
    (the se triple's: its sources read once, three windows written), the
@@ -385,6 +407,7 @@ from challenge_tpu_torch.models.registry import ModelBundle, get_density_model
 from challenge_tpu_torch.models.senet import SECascade
 from challenge_tpu_torch.models.vad import VADModel
 from challenge_tpu_torch.ops import cuda
+from challenge_tpu_torch.ops import synth as synth_lib
 from challenge_tpu_torch.ops.augment import batch_mask_keep
 from challenge_tpu_torch.ops.dsp import load_wav
 from challenge_tpu_torch.ops.synth import (
@@ -398,8 +421,8 @@ from challenge_tpu_torch.train.checkpoint import (
     save_weights, train_state_tensors)
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
 from challenge_tpu_torch.parallel import (
-    current, launch, make_fused_train_step, make_sharded_train_step,
-    replicate, shard_banks, shard_batch)
+    current, launch, make_fused_eval_step, make_fused_train_step,
+    make_sharded_train_step, replicate, shard_banks, shard_batch)
 from challenge_tpu_torch.utils import profiling
 from challenge_tpu_torch.train.optim import make_optimizer
 from challenge_tpu_torch.train.state import (
@@ -425,6 +448,8 @@ STREAM_TIMED_STEPS = 16                    # phase 5i, each turn
 RESUME_EPOCHS, RESUME_STEPS, RESUME_STOP = 4, 5, 2     # phase 5j
 MESH_SIZE, MESH_STEPS, MESH_TIMED_STEPS = 2, 3, 5      # phase 5k
 MESH_TIMER_TOL = 0.10          # phase 5k: StepTimer against fused_step_ms
+ITER_STEPS, ITER_VAL_STEPS = 2, 1      # phase 5l, beyond each capture
+ITER_TIMED_STEPS = 10                  # phase 5l, each turn
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
@@ -1133,8 +1158,8 @@ def fused_run(bundle, banks, spc: int, calls: int, graphed: bool,
     """``calls`` calls of the fused step of ``bundle`` (``steps_per_call``
     ``spc``) on ``banks``, graphed or its plain version, from a fresh
     state of seed 0 and generators of ``seed``. Returns (state, step,
-    per-call metrics, generators): a graphed step replays only with the
-    state, banks and generators of its first call."""
+    per-call metrics, generators): a graphed step replays with the state,
+    banks and generators of its capture (others capture anew)."""
     dev = bundle.device
     if state is None:
         state = init_state(bundle, 0)
@@ -1801,7 +1826,7 @@ def mesh_checks(dev, banks, fused_step_ms, d: str) -> dict:
     one = get_model(cfg)
     state = TrainState(one.module, make_optimizer(cfg,
                                                   one.module.parameters()))
-    one_loss = float(make_train_step(one)(state, (x, y))['loss'])
+    one_loss = float(make_train_step(one).plain(state, (x, y))['loss'])
     one_sd = {k: v.detach().clone()
               for k, v in one.module.state_dict().items()}
     del one, state
@@ -1902,6 +1927,219 @@ def mesh_checks(dev, banks, fused_step_ms, d: str) -> dict:
     res['profiling_s'] = time.perf_counter() - t0
     res['mesh_5k_s'] = time.perf_counter() - start
     log(f'phase 5k: {res["mesh_5k_s"]:.3f} s')
+    return res
+
+
+@contextlib.contextmanager
+def plain_synthesis():
+    """``ops.synth``'s magnitude, flat-complex and se-triple wrappers, which
+    ``data.mixture`` calls, swapped for their plain versions: a route's
+    plain output on the card."""
+    plain = {'synthesize_magnitude': synthesize_magnitude_plain,
+             'synthesize_flat': synthesize_flat_plain,
+             'synthesize_se': synthesize_se_plain}
+    saved = {k: getattr(synth_lib, k) for k in plain}
+    for k, fn in plain.items():
+        setattr(synth_lib, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(synth_lib, k, fn)
+
+
+def tensors_of(tree) -> list:
+    """The tensors of a (nested) tuple, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for item in tree for t in tensors_of(item)]
+
+
+def sample_batch_checks(banks) -> dict:
+    """Phase 5l's ``sample_batch``: the main path's batch (12 x 512
+    frames, 7 voice and 2 noise slots) on each bank dtype, through each
+    route; returns each route's largest difference from its plain
+    version (0.0 required)."""
+    cfg = Config(model_type='vad', v=8)
+    res, launches = {}, {}
+    for name, dt in FLAT_DTYPES.items():
+        gen = torch.Generator(device=banks[name].backgrounds.flat.device)
+        for route, kw, kernel in (
+                ('ftc', dict(layout='ftc'), FLAT_KERNELS[dt]),
+                ('tfc', dict(layout='tfc'), FLAT_KERNELS[dt]),
+                ('magnitude', dict(layout='tfc', magnitude=True),
+                 KERNELS[dt][0]),
+                ('se', dict(seperate_noise_voice=True), SE_KERNELS[dt])):
+            def run():
+                return mixture.sample_batch(
+                    gen.manual_seed(21), banks[name], cfg.batch_size,
+                    cfg.n_frame, max_voices=cfg.max_voices,
+                    max_noises=cfg.max_noises, snr=cfg.snr, **kw)
+            cuda.reset_launch_counts()
+            out = run()
+            torch.cuda.synchronize()
+            check_launches(f'sample_batch {name} {route}',
+                           dict(cuda.LAUNCHES), {kernel: 1})
+            launches[kernel] = launches.get(kernel, 0) + 1
+            with plain_synthesis():
+                ref = run()
+            a, b = tensors_of(out), tensors_of(ref)
+            if [(t.shape, t.dtype) for t in a] != [(t.shape, t.dtype)
+                                                   for t in b]:
+                raise AssertionError(f'sample_batch {name} {route}: shapes')
+            res[f'{name}_{route}'] = max(
+                float((x.float() - y.float()).abs().max()) for x, y in
+                zip(a, b))
+    log('sample_batch vs plain, max abs diff: ' + json.dumps(res))
+    if any(v != 0.0 for v in res.values()):
+        raise AssertionError('sample_batch disagrees with its plain version')
+    return {'max_abs_diff': res, 'launches': launches}
+
+
+def iter_run(make, banks, graphed: bool, d: str):
+    """One phase 5l run of ``make() -> (loop, cfg, variant, n_classes)``:
+    a fit of 1 + ITER_STEPS steps and 1 + ITER_VAL_STEPS validation
+    steps, ``set_weights`` (halved), a step, ``save_train_state``, a
+    step, ``restore_train_state``, a step and a validation step; graphed
+    or through the steps' ``.plain``. Returns (record, launches, the
+    loop's train and eval steps)."""
+    loop, cfg, variant, n_classes = make()
+    steps = loop.train_step, loop.eval_step
+    if not graphed:
+        loop.train_step, loop.eval_step = steps[0].plain, steps[1].plain
+    train, val = (iter(DevicePipeline(banks, cfg, training, variant=variant,
+                                      n_classes=n_classes))
+                  for training in (True, False))
+    cuda.reset_launch_counts()
+    logs = loop.fit(train, epochs=1, steps_per_epoch=1 + ITER_STEPS,
+                    validation_iter=val,
+                    validation_steps=1 + ITER_VAL_STEPS, verbose=0)
+    loop.set_weights({k: v * 0.5 if v.is_floating_point() else v
+                      for k, v in loop.get_weights().items()})
+    logs.append(loop.run_epoch(train, 1, True, epoch=1))
+    save_train_state(d, loop.state)
+    logs.append(loop.run_epoch(train, 1, True, epoch=2))
+    restore_train_state(d, loop.state)
+    logs.append(loop.run_epoch(train, 1, True, epoch=2))
+    logs.append(loop.run_epoch(val, 1, False, epoch=2))
+    torch.cuda.synchronize()
+    metrics = [{k: torch.tensor(v) for k, v in lg.items() if k != 'time'}
+               for lg in logs]
+    return fused_record(loop.state, metrics), dict(cuda.LAUNCHES), steps
+
+
+def iter_configs(banks, banks2048):
+    """Phase 5l's configurations: (name, banks, make) with ``make() ->
+    (TrainLoop from seed 0, config, variant, n_classes)``."""
+    ns = density_args()
+    dcfg = trainer.to_config(ns)
+
+    def density():
+        return (TrainLoop(get_density_model(dcfg, seed=dcfg.seed), seed=0,
+                          loss_fn=trainer.make_loss_fn(ns)),
+                dcfg, 'density', ns.n_classes)
+
+    def sj(cfg):
+        return lambda: (TrainLoop(get_model(cfg), seed=0), cfg, 'sj', None)
+    return (('density', banks2048, density),
+            ('vad_v8', banks, sj(Config(model_type='vad', v=8))),
+            ('eff_b0_v1', banks, sj(Config(model_type='eff', model=0,
+                                           v=1))))
+
+
+def iter_graph_checks(banks, banks2048) -> dict:
+    """Phase 5l (the module docstring)."""
+    start = time.perf_counter()
+    kernel = KERNELS[torch.float32][0]
+    res = {'launches': 0}          # the float32 magnitude kernel's, in 5l
+    d = tempfile.mkdtemp(prefix='chip_smoke_5l_')
+    try:
+        for name, bk, make in iter_configs(banks['float32'],
+                                           banks2048['float32']):
+            t0 = time.perf_counter()
+            r = res[name] = {}
+            recs = []
+            with cudnn_deterministic():
+                for graphed in (True, False):
+                    rec, launches, steps = iter_run(
+                        make, bk, graphed, os.path.join(d, f'{name}{graphed}'))
+                    # the pipeline's batches: the fit's, 3 training and 1
+                    # validation batch after it
+                    check_launches(f'iter {name} graphed {graphed}',
+                                   launches, {kernel: 1 + ITER_STEPS + 3
+                                              + 1 + ITER_VAL_STEPS + 1})
+                    res['launches'] += launches[kernel]
+                    if graphed:
+                        r['captures'] = [s.graphs.captures for s in steps]
+                        r['captured_launches'] = [
+                            dict(g.launches) for s in steps
+                            for g in s.graphs.graphs.values()]
+                    recs.append(rec)
+                    del rec, steps
+                    torch.cuda.empty_cache()
+            r['graph_gap'] = fused_gap(recs[1], recs[0])
+            log(f'iter {name}: graph vs plain {r["graph_gap"]}, captures '
+                f'{r["captures"]}')
+            if r['graph_gap'][0] != 0.0 or r['captures'] != [1, 1]:
+                raise AssertionError(f'iter {name}: graph vs plain '
+                                     f'{r["graph_gap"]}, captures '
+                                     f'{r["captures"]}')
+            del recs
+            # graphed against eager, in turns, with the default algorithms
+            loop, cfg, variant, n_classes = make()
+            it = iter(DevicePipeline(bk, cfg, variant=variant,
+                                     n_classes=n_classes))
+            loop.fit(it, epochs=1, steps_per_epoch=3, verbose=0)
+            graphed = loop.train_step
+            r['iter_step_ms'], r['eager_iter_step_ms'] = [], []
+            for g in (True, False, False, True):
+                loop.train_step = graphed if g else graphed.plain
+                r['iter_step_ms' if g else 'eager_iter_step_ms'].append(
+                    wall_ms(lambda: loop.run_epoch(it, ITER_TIMED_STEPS,
+                                                   True), 1)
+                    / ITER_TIMED_STEPS)
+            del loop, it, graphed
+            torch.cuda.empty_cache()
+            r['seconds'] = time.perf_counter() - t0
+            log(f'iter {name}: {json.dumps(r)}')
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    # the graphed fused eval step of vad v8 against its plain version
+    cfg = Config(model_type='vad', v=8)
+    recs = []
+    with cudnn_deterministic():
+        for graphed in (False, True):
+            bundle = get_model(cfg)
+            state = init_state(bundle, 0)
+            step = make_fused_eval_step(bundle, cfg)
+            gen = torch.Generator(device=bundle.device).manual_seed(13)
+            run = step if graphed else step.plain
+            cuda.reset_launch_counts()
+            metrics = [run(state, banks['float32'], gen) for _ in range(3)]
+            torch.cuda.synchronize()
+            check_launches(f'fused eval graphed {graphed}',
+                           dict(cuda.LAUNCHES), {kernel: 3})
+            res['launches'] += 3
+            if graphed:
+                res['fused_eval_captured'] = [
+                    dict(g.launches) for g in step.graphs.graphs.values()]
+                if res['fused_eval_captured'] != [{kernel: 1}]:
+                    raise AssertionError(f'fused eval captured '
+                                         f'{res["fused_eval_captured"]}')
+            recs.append(fused_record(state, metrics))
+    res['fused_eval_gap'] = fused_gap(recs[0], recs[1])
+    if res['fused_eval_gap'][0] != 0.0:
+        raise AssertionError(f'fused eval graph vs plain '
+                             f'{res["fused_eval_gap"]}')
+    res['fused_eval_ms'], res['eager_fused_eval_ms'] = [], []
+    for g in (True, False, False, True):
+        run = step if g else step.plain
+        res['fused_eval_ms' if g else 'eager_fused_eval_ms'].append(
+            wall_ms(lambda: run(state, banks['float32'], gen), 20))
+    del bundle, state, step, recs
+    res['sample_batch'] = sample_batch_checks(banks)
+    res['iter_5l_s'] = time.perf_counter() - start
+    log(f'phase 5l: {res["iter_5l_s"]:.3f} s')
     return res
 
 
@@ -2501,7 +2739,9 @@ def density_main_path(banks) -> dict:
     fused_mel=True)``, the float32 mel kernel once a batch; the fused and
     unfused features of one generator state; then the step, the batch
     pipeline and the model step timed (``wall_ms``, as phase 6 times the
-    others) and the peak device memory above the earlier phases'."""
+    others; the step graphed, ``density_step_ms``, then eager,
+    ``eager_density_step_ms``) and the peak device memory above the earlier
+    phases'."""
     start = time.perf_counter()
     ns = density_args()
     cfg = trainer.to_config(ns)
@@ -2562,13 +2802,17 @@ def density_main_path(banks) -> dict:
                              f'{torch.equal(yf, yu)}')
     res['density_fused_vs_unfused_max_abs'] = float((xf - xu).abs().max())
     it = pipes[0]
-    res['density_step_ms'] = wall_ms(lambda: loop.run_epoch(
-        it, DENSITY_TIMED_STEPS, training=True), 1) / DENSITY_TIMED_STEPS
+    graphed = loop.train_step
+    for key, step in (('density_step_ms', graphed),
+                      ('eager_density_step_ms', graphed.plain)):
+        loop.train_step = step
+        res[key] = wall_ms(lambda: loop.run_epoch(
+            it, DENSITY_TIMED_STEPS, training=True), 1) / DENSITY_TIMED_STEPS
+    loop.train_step = graphed
     res['density_pipeline_ms'] = wall_ms(lambda: next(it), 10)
     batch = next(it)
-    gen = torch.Generator(device=batch[0].device).manual_seed(0)
     res['density_model_step_ms'] = wall_ms(
-        lambda: loop.train_step(loop.state, batch, gen), 10)
+        lambda: loop.train_step(loop.state, batch, loop.gen), 10)
     res['density_peak_gib'] = (torch.cuda.max_memory_allocated()
                                - base) / 2**30
     if '--profile' in sys.argv:
@@ -3439,7 +3683,6 @@ def main(argv) -> int:
     fused_res = fused_checks(banks['float32'], banks2048['float32'])
     # 5h. this slice's main path: the fused step with bfloat16 models
     bf16_res = bf16_fused_checks(banks['float32'], banks2048['float32'])
-    del banks2048
     # 5i. this slice's main path: the graphed step on a rotation of chunk
     # banks; 5j. resume on the card, resident and mid-rotation
     stream_res, chunks = stream_checks(dev, banks['float32'])
@@ -3453,6 +3696,11 @@ def main(argv) -> int:
                                mesh_dir)
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
+    # 5l. this slice's main path: the graphed iterator and validation steps
+    # of the density defaults, vad v8 and eff B0 v1, the graphed fused
+    # eval step, sample_batch's routes
+    iter_res = iter_graph_checks(banks, banks2048)
+    del banks2048
 
     # 6. times: each kernel on the main path's draws (the flat-complex
     # ones on the full mix, the se triple on the same draws); then the
@@ -3567,9 +3815,9 @@ def main(argv) -> int:
     eff['eff_step_ms'] = wall_ms(lambda: eff_loop.run_epoch(
         eff_train_it, 20, training=True), 1) / 20
     eff['eff_pipeline_ms'] = wall_ms(lambda: next(eff_train_it), 20)
-    eff_gen = torch.Generator(device=dev).manual_seed(0)
     eff['eff_model_step_ms'] = wall_ms(
-        lambda: eff_loop.train_step(eff_loop.state, eff_batch, eff_gen), 20)
+        lambda: eff_loop.train_step(eff_loop.state, eff_batch, eff_loop.gen),
+        20)
     if '--profile' in argv:
         profile_steps(eff_loop, eff_train_it, 10, 'EFF_PROFILE')
     del eff_loop, eff_train_it, eff_batch
@@ -3679,6 +3927,7 @@ def main(argv) -> int:
                             for dt in ('float32', 'int8')},
         'times': 'two ranks on one card, not a speed measurement',
         'card': smi}))
+    log('ITER ' + json.dumps({**iter_res, 'card': smi}))
     keras = cli['keras']
     log('KERAS ' + json.dumps({**{k: v for k, v in keras.items()
                                   if k != 'keras_launches'}, 'card': smi}))
@@ -3724,6 +3973,9 @@ def main(argv) -> int:
         'keras_7h_launches': keras.get('keras_launches', {}).get(name, 0),
         'mesh_5k_launches': sum(c.get(name, 0) for dt in ('float32', 'int8')
                                 for c in mesh_res[f'{dt}_launches']),
+        'iter_5l_launches': (iter_res['launches'] if name == f32_kernel
+                             else 0)
+        + iter_res['sample_batch']['launches'].get(name, 0),
         'max_abs_err': max(errs[name].values()),
         **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {
