@@ -9,6 +9,14 @@ card. Each rank runs the step on its share of the batch; the collectives
 metric all-reduces of ``parallel.train``) keep the ranks identical.
 ``parallel.launch`` starts the ranks.
 
+NCCL's collectives can be captured in a CUDA graph, gloo's cannot
+(:attr:`Mesh.capturable`): on an NCCL mesh the steps run as CUDA graphs
+(``train.graph``), on a gloo mesh eagerly. The collectives a step issues
+(:meth:`Mesh.all_reduce_`, :meth:`Mesh.broadcast_`) stay on the device
+with no host sync, so they can be captured; :meth:`Mesh.all_gather` and
+:meth:`Mesh.broadcast_object` go through the host and serve only the
+eval and the callbacks, outside any step.
+
 A :class:`Mesh` is first a plan (its devices, one per rank); the process
 that joins it as a rank (:func:`join`) holds it, with its rank and process
 group, as the process's :func:`current` mesh. On the CPU a mesh of k ranks
@@ -65,6 +73,13 @@ class Mesh:
         cuda = all(d.type == 'cuda' for d in self.devices)
         distinct = len({d.index for d in self.devices}) == self.size
         return 'nccl' if cuda and distinct else 'gloo'
+
+    @property
+    def capturable(self) -> bool:
+        """Whether this rank's collectives can be captured in a CUDA graph:
+        joined, over NCCL, on a card."""
+        return (self.joined and self.backend == 'nccl'
+                and self.device.type == 'cuda')
 
     # --------------------------------------------------------- collectives
     def _flat(self, tensors: Sequence[torch.Tensor], collective) -> None:
@@ -139,6 +154,13 @@ def join(mesh: Mesh, rank: int, init_method: str) -> Mesh:
                             rank=rank, world_size=mesh.size,
                             timeout=TIMEOUT)
     mesh.group = dist.group.WORLD
+    if mesh.backend == 'nccl':
+        # NCCL makes its communicator and stream at the first collective,
+        # which must not fall inside a graph capture: make them here.
+        # Capturing NCCL's collectives needs no other setting on PyTorch
+        # 2.11 with NCCL 2.28 (async error handling stays on)
+        dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.group)
+        torch.cuda.synchronize(mesh.device)
     _current = mesh
     return mesh
 

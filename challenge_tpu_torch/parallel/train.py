@@ -1,4 +1,4 @@
-"""The fused training step on one device (counterpart:
+"""The fused training step (counterpart:
 ``challenge_tpu/parallel/train.py``: ``make_fused_train_step``,
 ``make_fused_eval_step``).
 
@@ -32,9 +32,13 @@ by the rank too (JAX: the step key folded with ``axis_index``), through
 the synthesis kernel of its bank dtype on its device, then runs the step
 with cross-replica BN statistics and the ranks' gradients summed
 (``train.state``). With ``bank_sharded`` the banks it is given are the
-rank's block of the clip axis (``mesh.shard_banks``). The mesh step runs
-eager on every backend: gloo's collectives cannot be captured in a CUDA
-graph, and NCCL's capture is later work (ROADMAP).
+rank's block of the clip axis (``mesh.shard_banks``). On an NCCL mesh
+(``Mesh.capturable``) both steps are CUDA graphs as on one card, the
+step's collectives captured with it (``train.graph``); the train step's
+metrics are reduced over the ranks once a call, after its replays, as
+:meth:`FusedTrainStep.plain` reduces them, the eval step's inside its
+graph. On a gloo mesh they run eagerly (:meth:`FusedTrainStep.plain`,
+:meth:`FusedEvalStep.plain`): gloo's collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import dataclasses
 from challenge_tpu_torch.config import Config
 from challenge_tpu_torch.data.pipeline import FeatureFn
 from challenge_tpu_torch.models.registry import ModelBundle
-from challenge_tpu_torch.train.graph import StepGraphs
+from challenge_tpu_torch.train.graph import StepGraphs, capturable, on_cuda
 from challenge_tpu_torch.train.state import (
     accumulate_grads, make_eval_step, make_grad_update, make_train_step,
     mean_metrics, reduce_metrics)
@@ -110,12 +114,15 @@ class FusedTrainStep:
     stochastic-depth generator of a model that takes one. Returns each
     metric's mean over the call's steps (parallel/train.py:211-216).
 
-    On a CUDA device one step is a CUDA graph (``train.graph``), bound to
-    the state, banks and generators it was captured with; a call with
-    others captures anew. The first call runs its first step eagerly on
-    the graph's stream and captures it, then replays it for the rest of
-    the call. Each replay adds the kernel launches it captured to
-    ``ops.cuda.LAUNCHES`` and one to ``state.step``."""
+    On a CUDA device, alone or on an NCCL mesh, one step (:meth:`one`) is
+    a CUDA graph (``train.graph``), bound to the state, banks and
+    generators it was captured with; a call with others captures anew.
+    The first call runs its first step eagerly on the graph's stream and
+    captures it, then replays it for the rest of the call. Each replay
+    adds the kernel launches it captured to ``ops.cuda.LAUNCHES`` and one
+    to ``state.step``. On a mesh the call then reduces the mean of its
+    steps' metrics over the ranks, as :meth:`plain` does; on the CPU and
+    on a gloo mesh the call is :meth:`plain`."""
 
     def __init__(self, bundle: ModelBundle, config: Config, loss_fn=None,
                  variant: str = 'sj', steps_per_call: Optional[int] = None,
@@ -146,25 +153,28 @@ class FusedTrainStep:
             mean_metrics([self.one(state, banks, gen, dropout_gen)
                           for _ in range(self.steps_per_call)]), self.mesh)
 
+    def body(self, state, _batch, banks, gen, dropout_gen=None):
+        """What a graph holds: :meth:`one` (the fused steps take no
+        batch)."""
+        return self.one(state, banks, gen, dropout_gen)
+
     def __call__(self, state, banks, gen, dropout_gen=None):
-        if (banks.backgrounds.flat.device.type == 'cpu'
-                or self.mesh is not None):
+        if not (on_cuda(state) and capturable(self.mesh)):
             return self.plain(state, banks, gen, dropout_gen)
-        steps = [self.graphs(
-            lambda state, _, banks, gen, dropout_gen:
-            self.one(state, banks, gen, dropout_gen),
-            state, None, banks, gen, dropout_gen)
-            for _ in range(self.steps_per_call)]
-        return mean_metrics(steps)
+        steps = [self.graphs(self.body, state, None, banks, gen, dropout_gen)
+                 for _ in range(self.steps_per_call)]
+        return reduce_metrics(mean_metrics(steps), self.mesh)
 
 
 class FusedEvalStep:
     """``step(state, banks, gen) -> metrics``: one validation batch drawn
     from ``banks`` with ``gen`` (on a mesh the rank's share), then the
     inference-mode forward, loss and metrics (the global batch's). On a
-    CUDA device the draws, the synthesis kernel and the eval step are one
-    CUDA graph with ``gen`` registered, bound as :class:`FusedTrainStep`'s;
-    eager on the CPU and on a mesh (:meth:`plain`)."""
+    CUDA device, alone or on an NCCL mesh, the draws, the synthesis
+    kernel and the eval step, the metrics' reduction over the ranks
+    included, are one CUDA graph with ``gen`` registered, bound as
+    :class:`FusedTrainStep`'s; eager on the CPU and on a gloo mesh
+    (:meth:`plain`)."""
 
     def __init__(self, bundle: ModelBundle, config: Config, loss_fn=None,
                  variant: str = 'sj', mesh=None, bank_sharded: bool = False):
@@ -178,14 +188,14 @@ class FusedEvalStep:
         """The plain version, eager."""
         return self.eval_step.plain(state, self.features(gen, banks))
 
+    def body(self, state, _batch, banks, gen):
+        """What the graph holds: :meth:`plain`."""
+        return self.plain(state, banks, gen)
+
     def __call__(self, state, banks, gen):
-        if (banks.backgrounds.flat.device.type == 'cpu'
-                or self.mesh is not None):
+        if not (on_cuda(state) and capturable(self.mesh)):
             return self.plain(state, banks, gen)
-        return self.graphs(
-            lambda state, _, banks, gen: self.eval_step.run(
-                state, self.features(gen, banks)),
-            state, None, banks, gen)
+        return self.graphs(self.body, state, None, banks, gen)
 
 
 def make_fused_train_step(bundle: ModelBundle, config: Config, loss_fn=None,

@@ -5,7 +5,9 @@ JAX compiles a step once and dispatches it as one program. The port
 captures a step as one CUDA graph and replays it, so that a step costs the
 host one replay instead of some thousands of launches. One scheme serves
 the iterator-mode train and eval steps (``train.state``) and the fused
-train and eval steps (``parallel.train``), in :class:`StepGraphs`:
+train and eval steps (``parallel.train``), on one card and on a
+data-parallel mesh whose collectives can be captured (NCCL,
+:func:`capturable`), in :class:`StepGraphs`:
 
 * the first call of a batch signature runs the step eagerly on a side
   stream, which lets cuDNN pick its algorithms, the optimizer make its
@@ -24,6 +26,15 @@ train and eval steps (``parallel.train``), in :class:`StepGraphs`:
 * the outputs (the metrics) are cloned after each replay, and
   ``state.step`` advances by what the captured call advanced it.
 
+On a mesh the step's collectives (``parallel.mesh``: the gradient
+all-reduce, AGC's broadcast, cross-replica BatchNorm's all-reduces in the
+forward and the backward, the metrics' all-reduce) run in the eager step;
+the capture records them, the backward's too (autograd runs it on the
+capturing stream), and executes none; each replay executes them once.
+So a call that captures executes the same collectives, in the same
+order, as a call that replays: the eager step's. A rank that drops a
+stale graph and captures anew stays in step with ranks that replay.
+
 A graph reads the state's tensors by address: the module's parameters and
 buffers, each optimizer group's device ``lr`` and ``step`` and every
 optimizer slot. The port's write paths keep those addresses (``set_weights``,
@@ -32,8 +43,8 @@ and the state, banks and generators the graphs were captured with: if any
 differs, every graph of the step is dropped and the call captures anew.
 No graph is ever replayed on tensors it was not captured with.
 
-There is no fallback: a failed capture or replay raises. On the CPU the
-caller runs the step eagerly.
+There is no fallback: a failed capture or replay raises. On the CPU and
+on a gloo mesh the caller runs the step eagerly.
 """
 
 from __future__ import annotations
@@ -174,3 +185,10 @@ class StepGraphs:
 def on_cuda(state) -> bool:
     """Whether the state's module lives on a CUDA device."""
     return next(state.module.parameters()).device.type == 'cuda'
+
+
+def capturable(mesh) -> bool:
+    """Whether a step over ``mesh`` (None: one device) can be captured:
+    alone, or on a mesh whose collectives can be (NCCL,
+    ``Mesh.capturable``)."""
+    return mesh is None or mesh.capturable

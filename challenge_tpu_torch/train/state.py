@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from challenge_tpu_torch.models.layers import cross_replica, remat_contexts
 from challenge_tpu_torch.models.registry import ModelBundle
 from challenge_tpu_torch.train import metrics as metrics_lib
-from challenge_tpu_torch.train.graph import StepGraphs, on_cuda
+from challenge_tpu_torch.train.graph import StepGraphs, capturable, on_cuda
 from challenge_tpu_torch.train.losses import get_loss
 from challenge_tpu_torch.train.optim import (
     adaptive_clip_grad, make_optimizer, transposed_weights)
@@ -222,12 +222,15 @@ def accumulate_grads(grad_fn, module: nn.Module, batches: Iterable,
 class TrainStep:
     """``step(state, (x, y), gen=None) -> metrics``, the iterator-mode
     train step (counterpart: ``make_train_step``'s ``jax.jit``,
-    state.py:132-150); updates ``state`` in place. On a module on the CPU,
-    or on a ``mesh`` (gloo's collectives cannot be captured), it runs
-    :meth:`plain`; on a CUDA module it is a CUDA graph a batch signature
+    state.py:132-150); updates ``state`` in place. On a CUDA module,
+    alone or on an NCCL ``mesh``, it is a CUDA graph a batch signature
     (``train.graph``), with the stochastic-depth generator ``gen``
-    registered. The mode (training) and the loss's ``needs_params``
-    penalty are fixed before the capture, so the graph holds them."""
+    registered; the graph holds the whole of :meth:`plain`, the mesh's
+    collectives and the metrics' reduction included, so a replay returns
+    the global batch's metrics. On the CPU and on a gloo mesh (gloo's
+    collectives cannot be captured) it runs :meth:`plain`. The mode
+    (training) and the loss's ``needs_params`` penalty are fixed before
+    the capture, so the graph holds them."""
 
     def __init__(self, bundle: ModelBundle, loss_fn=None, mesh=None):
         self.grad_fn, self.update_fn = make_grad_update(bundle, loss_fn,
@@ -247,9 +250,9 @@ class TrainStep:
         return reduce_metrics(self.run(state, batch, gen), self.mesh)
 
     def __call__(self, state, batch, gen=None):
-        if self.mesh is not None or not on_cuda(state):
+        if not (on_cuda(state) and capturable(self.mesh)):
             return self.plain(state, batch, gen)
-        return self.graphs(self.run, state, batch,
+        return self.graphs(self.plain, state, batch,
                            gen if self.needs_gen else None)
 
 
@@ -258,9 +261,10 @@ class EvalStep:
     (counterpart: ``make_eval_step``'s ``jax.jit``, state.py:153-172):
     inference-mode forward, loss and metrics; the loss of a
     ``needs_params`` ``loss_fn`` includes its penalty, as JAX's does. As
-    :class:`TrainStep`: eager on the CPU and on a ``mesh`` (the batch the
-    rank's share, the metrics the global batch's), a CUDA graph a batch
-    signature on the card, captured in eval mode."""
+    :class:`TrainStep`: on a ``mesh`` the batch is the rank's share and
+    the metrics the global batch's; a CUDA graph a batch signature on the
+    card, alone or on an NCCL mesh, captured in eval mode; eager
+    (:meth:`plain`) on the CPU and on a gloo mesh."""
 
     def __init__(self, bundle: ModelBundle, loss_fn=None, mesh=None):
         self.loss_fn = loss_fn or get_loss(bundle.config)
@@ -282,9 +286,9 @@ class EvalStep:
         return reduce_metrics(self.run(state, batch), self.mesh)
 
     def __call__(self, state, batch):
-        if self.mesh is not None or not on_cuda(state):
+        if not (on_cuda(state) and capturable(self.mesh)):
             return self.plain(state, batch)
-        return self.graphs(self.run, state, batch)
+        return self.graphs(self.plain, state, batch)
 
 
 def make_train_step(bundle: ModelBundle, loss_fn=None,

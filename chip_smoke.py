@@ -227,6 +227,28 @@ without the result line:
    graphed vad v8 steps, writing a non-empty trace, with ``StepTimer``
    around each, its step within 10% of phase 5g's ``fused_step_ms``;
    printed on the ``MESH`` line;
+5m. the mesh steps as CUDA graphs over NCCL: a mesh of one rank on this
+   card (``parallel.launch``, no child), and of two ranks on two cards
+   where two are visible. Each rank, for vad v8 and eff B0 v1 at full
+   width and batch 12, under cuDNN's deterministic algorithms, runs each
+   mesh step graphed and through ``.plain`` from one seed, 3 calls each:
+   ``make_sharded_train_step`` and ``make_sharded_eval_step`` on fixed
+   global batches, the fused train step on replicated float32 banks
+   (one ``synth_mag_f32`` a step) and on ``--bank_shard`` int8 banks
+   with ``grad_accum`` 2 and ``steps_per_call`` 4 (2 calls, one
+   ``synth_mag_int8`` a microbatch), the fused eval step (one
+   ``synth_mag_f32`` a call): every weight, BN statistic, optimizer slot
+   and metric equal at 0.0, one capture a step object, the launches
+   counted from the graphs' replays, and the first call's collectives
+   (``Mesh._flat``) the eager step's, then the same recorded by the
+   capture on the capturing stream, a backward's (autograd's thread)
+   among them; ``TrainLoop.fit`` for 2 epochs of 3 steps and 1
+   validation step on the mesh, through one capture of each step; then
+   the graphed mesh step, its ``.plain`` and the one-process graphed
+   step in turns (``mesh_graph_step_ms``, ``mesh_eager_step_ms``,
+   ``fused_step_ms``, 10 steps a turn). With two ranks, their states
+   after each run and their logs equal bit for bit. Printed on the
+   ``MESH_GRAPH`` line;
 5l. graphed iterator and validation steps (``train/state.py``
    ``TrainStep``, ``EvalStep``; ``train/graph.py``): the density trainer's
    defaults (on the 2,048-frame float32 banks, its loss with the l2
@@ -373,6 +395,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import gc
 import glob
 import hashlib
 import io
@@ -384,8 +407,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
+from unittest import mock
 
 import numpy as np
 import torch
@@ -421,8 +446,9 @@ from challenge_tpu_torch.train.checkpoint import (
     save_weights, train_state_tensors)
 from challenge_tpu_torch.train.losses import binary_crossentropy, se_loss
 from challenge_tpu_torch.parallel import (
-    current, launch, make_fused_eval_step, make_fused_train_step,
-    make_sharded_train_step, replicate, shard_banks, shard_batch)
+    Mesh, current, launch, make_fused_eval_step, make_fused_train_step,
+    make_sharded_eval_step, make_sharded_train_step, replicate, shard_banks,
+    shard_batch)
 from challenge_tpu_torch.utils import profiling
 from challenge_tpu_torch.train.optim import make_optimizer
 from challenge_tpu_torch.train.state import (
@@ -448,6 +474,11 @@ STREAM_TIMED_STEPS = 16                    # phase 5i, each turn
 RESUME_EPOCHS, RESUME_STEPS, RESUME_STOP = 4, 5, 2     # phase 5j
 MESH_SIZE, MESH_STEPS, MESH_TIMED_STEPS = 2, 3, 5      # phase 5k
 MESH_TIMER_TOL = 0.10          # phase 5k: StepTimer against fused_step_ms
+MESH_GRAPH_CALLS = 3           # phase 5m: each step's calls, graphed and plain
+MESH_GRAPH_INT8 = (2, 4, 2)    # phase 5m, int8: calls, steps_per_call,
+                               # grad_accum
+MESH_GRAPH_EPOCHS, MESH_GRAPH_FIT_STEPS = 2, 3     # phase 5m's fit
+MESH_GRAPH_TIMED_STEPS = 10    # phase 5m, each turn
 ITER_STEPS, ITER_VAL_STEPS = 2, 1      # phase 5l, beyond each capture
 ITER_TIMED_STEPS = 10                  # phase 5l, each turn
 SR = 16000
@@ -1927,6 +1958,268 @@ def mesh_checks(dev, banks, fused_step_ms, d: str) -> dict:
     res['profiling_s'] = time.perf_counter() - t0
     res['mesh_5k_s'] = time.perf_counter() - start
     log(f'phase 5k: {res["mesh_5k_s"]:.3f} s')
+    return res
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Every collective of ``Mesh`` while inside, logged as (the calling
+    stream was capturing, autograd's device thread issued it (a
+    backward), the collective, its tensors' sizes)."""
+    log = []
+    flat = Mesh._flat
+    main = threading.get_ident()
+
+    def logged(mesh, tensors, collective):
+        log.append((torch.cuda.is_current_stream_capturing(),
+                    threading.get_ident() != main,
+                    collective.__qualname__.split('.')[1],
+                    tuple(t.numel() for t in tensors)))
+        return flat(mesh, tensors, collective)
+    with mock.patch.object(Mesh, '_flat', logged):
+        yield log
+
+
+def mesh_graph_pair(what: str, make, calls: int, expected: dict,
+                    extra: int) -> dict:
+    """Phase 5m: ``calls`` calls of a mesh step graphed and through
+    ``.plain``, each from ``make() -> (state, step, args_of)`` (call i is
+    ``step(state, *args_of(i))``), under cuDNN's deterministic
+    algorithms. Raises unless the two agree at 0.0, the graphed step
+    object captured once, its launches are ``expected``, and its first
+    call's collectives are the eager step's (plus ``extra`` after the
+    replays: the fused train step's metrics), the capture's recorded on
+    the capturing stream, a backward's included."""
+    recs = []
+    with cudnn_deterministic():
+        for graphed in (False, True):
+            state, step, args_of = make()
+            run = step if graphed else step.plain
+            cuda.reset_launch_counts()
+            with collective_log() as first:
+                metrics = [run(state, *args_of(0))]
+            metrics += [run(state, *args_of(i)) for i in range(1, calls)]
+            torch.cuda.synchronize()
+            launches = dict(cuda.LAUNCHES)
+            recs.append(fused_record(state, metrics))
+    r = {'gap': fused_gap(recs[0], recs[1]), 'captures': step.graphs.captures,
+         'launches': launches,
+         'captured_launches': [dict(g.launches)
+                               for g in step.graphs.graphs.values()],
+         'digest': state_digest(state.module)}
+    check_launches(f'mesh graph {what}', launches, expected)
+    eager = [e[1:] for e in first if not e[0]]
+    captured = [e[1:] for e in first if e[0]]
+    r['collectives'] = {'eager': len(eager), 'captured': len(captured),
+                        'backward_captured': sum(e[1] for e in first
+                                                 if e[0])}
+    log(f'mesh graph {what}: graph vs plain {r["gap"]}, captures '
+        f'{r["captures"]}, collectives {r["collectives"]}')
+    if r['gap'][0] != 0.0 or r['captures'] != 1:
+        raise AssertionError(f'mesh graph {what}: {r}')
+    if (not captured or eager[:len(captured)] != captured
+            or len(eager) != len(captured) + extra):
+        raise AssertionError(f'mesh graph {what}: the capture recorded '
+                             f'{captured}, the eager step ran {eager}')
+    if state.module.training and not r['collectives']['backward_captured']:
+        raise AssertionError(f'mesh graph {what}: no backward collective '
+                             'was captured')
+    del recs, state, step
+    torch.cuda.empty_cache()
+    return r
+
+
+def device_kernels(fn) -> dict:
+    """The device kernels of one call of ``fn`` under torch.profiler: how
+    many in all, and NCCL's by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {'kernels': sum(e.count for e in device),
+            'nccl': {e.key: e.count for e in device
+                     if 'nccl' in e.key.lower()}}
+
+
+def mesh_graph_model(cfg, banks, mesh) -> dict:
+    """Phase 5m for one model on this rank (the module docstring)."""
+    t0 = time.perf_counter()
+    dev = mesh.device
+    f32 = KERNELS[torch.float32][0]
+    cfg8 = cfg.replace(bank_dtype='int8', bank_shard=True,
+                       grad_accum=MESH_GRAPH_INT8[2],
+                       steps_per_call=MESH_GRAPH_INT8[1])
+    # the sharded steps' global batches, alike on every rank
+    gen = torch.Generator(device=dev).manual_seed(31)
+    batches = [shard_batch(FeatureFn(cfg, device=dev)(gen, banks['float32']),
+                           mesh) for _ in range(MESH_GRAPH_CALLS)]
+
+    def fresh(c):
+        bundle = get_model(c)
+        state = init_state(bundle, 0)
+        replicate(state.module, mesh)
+        gen = (torch.Generator(device=dev).manual_seed(41 + mesh.rank)
+               if bundle.needs_dropout_gen else None)
+        return bundle, state, gen
+
+    def sharded(make_step, train: bool):
+        def make():
+            bundle, state, dgen = fresh(cfg)
+            return state, make_step(bundle, mesh), lambda i: (
+                (batches[i], dgen) if train else (batches[i],))
+        return make
+
+    def fused(make_step, c, dtype: str, train: bool):
+        def make():
+            bundle, state, dgen = fresh(c)
+            gen = torch.Generator(device=dev).manual_seed(20 + mesh.rank)
+            return (state, make_step(bundle, c, mesh=mesh,
+                                     bank_sharded=c.bank_shard),
+                    lambda i: (banks[dtype], gen, dgen) if train
+                    else (banks[dtype], gen))
+        return make
+    calls8, spc8, accum8 = MESH_GRAPH_INT8
+    res = {name: mesh_graph_pair(f'{cfg.model_type} {name}', make, calls,
+                                 expected, extra)
+           for name, make, calls, expected, extra in (
+               ('sharded_train', sharded(make_sharded_train_step, True),
+                MESH_GRAPH_CALLS, {}, 0),
+               ('sharded_eval', sharded(make_sharded_eval_step, False),
+                MESH_GRAPH_CALLS, {}, 0),
+               ('fused_train_f32', fused(make_fused_train_step, cfg,
+                                         'float32', True),
+                MESH_GRAPH_CALLS, {f32: MESH_GRAPH_CALLS}, 1),
+               ('fused_train_int8', fused(make_fused_train_step, cfg8,
+                                          'int8', True),
+                calls8, {'synth_mag_int8': calls8 * spc8 * accum8}, 1),
+               ('fused_eval', fused(make_fused_eval_step, cfg, 'float32',
+                                    False),
+                MESH_GRAPH_CALLS, {f32: MESH_GRAPH_CALLS}, 0))}
+    del batches
+    # TrainLoop.fit on the mesh, through the graphed fused steps
+    loop = TrainLoop(get_model(cfg), seed=0, banks=banks['float32'],
+                     val_banks=banks['float32'], mesh=mesh)
+    cuda.reset_launch_counts()
+    hist = loop.fit(epochs=MESH_GRAPH_EPOCHS,
+                    steps_per_epoch=MESH_GRAPH_FIT_STEPS, validation_steps=1,
+                    verbose=0)
+    torch.cuda.synchronize()
+    fit = {'launches': dict(cuda.LAUNCHES), 'logs': hist,
+           'captures': [loop.train_step.graphs.captures,
+                        loop.eval_step.graphs.captures],
+           'digest': state_digest(loop.state.module)}
+    check_launches(f'mesh graph {cfg.model_type} fit', fit['launches'],
+                   {f32: MESH_GRAPH_EPOCHS * (MESH_GRAPH_FIT_STEPS + 1)})
+    if fit['captures'] != [1, 1] or not all(
+            math.isfinite(v) for lg in hist for k, v in lg.items()
+            if k != 'time'):
+        raise AssertionError(f'mesh graph fit: {fit}')
+    res['fit'] = fit
+    del loop
+    # the graphed mesh step, the eager mesh step and the one-process
+    # graphed step, in turns, on the float32 banks
+    bundle, state, dgen = fresh(cfg)
+    step = make_fused_train_step(bundle, cfg, mesh=mesh)
+    one = get_model(cfg)
+    one_state = init_state(one, 0)
+    one_step = make_fused_train_step(one, cfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    runs = {'mesh_graph_step_ms': lambda: step(state, banks['float32'], gen,
+                                               dgen),
+            'mesh_eager_step_ms': lambda: step.plain(state, banks['float32'],
+                                                     gen, dgen),
+            'fused_step_ms': lambda: one_step(one_state, banks['float32'],
+                                              gen, dgen)}
+    for fn in runs.values():             # captures, cuDNN's search
+        wall_ms(fn, 2)
+    times = {k: [] for k in runs}
+    for k in ('mesh_graph_step_ms', 'mesh_eager_step_ms', 'fused_step_ms',
+              'fused_step_ms', 'mesh_eager_step_ms', 'mesh_graph_step_ms'):
+        times[k].append(wall_ms(runs[k], MESH_GRAPH_TIMED_STEPS))
+    res.update(times)
+    # a replay's kernels and the eager step's: with two or more ranks the
+    # replay runs NCCL's; one rank's collectives have nothing to move
+    res['replay_kernels'] = device_kernels(runs['mesh_graph_step_ms'])
+    res['eager_kernels'] = device_kernels(runs['mesh_eager_step_ms'])
+    log(f'mesh graph {cfg.model_type}: a replay ran '
+        f'{res["replay_kernels"]}, the eager step {res["eager_kernels"]}')
+    if (mesh.size > 1 and res['replay_kernels']['kernels']
+            and not res['replay_kernels']['nccl']):
+        raise AssertionError(f'phase 5m: no NCCL kernel in a replay on '
+                             f'{mesh.size} ranks')
+    del bundle, state, step, one, one_state, one_step, runs
+    torch.cuda.empty_cache()
+    res['seconds'] = time.perf_counter() - t0
+    return res
+
+
+def mesh_graph_rank(args: dict) -> dict:
+    """What each rank of phase 5m runs, on a card of its own over NCCL;
+    rank 0 is this script's process, any other rank a child that imports
+    this module."""
+    mesh = current()
+    if not mesh.capturable:
+        raise AssertionError(f'phase 5m: a {mesh.backend} mesh over '
+                             f'{mesh.devices} cannot be captured')
+    banks = {dtype: mesh_banks(dtype, shard, mesh)
+             for dtype, shard in (('float32', False), ('int8', True))}
+    out = {'rank': mesh.rank, 'backend': mesh.backend}
+    for name, cfg in (('vad_v8', Config(model_type='vad', v=8)),
+                      ('eff_b0_v1', Config(model_type='eff', model=0, v=1))):
+        out[name] = mesh_graph_model(cfg, banks, mesh)
+    # no graph that holds NCCL's work outlives the communicator, which
+    # the rank destroys when it leaves the mesh
+    gc.collect()
+    torch.cuda.synchronize()
+    return out
+
+
+def mesh_graph_run(devices, d: str) -> dict:
+    """Phase 5m over ``devices``, a rank each; the ranks' states equal
+    bit for bit after each run. Returns rank 0's results."""
+    ranks = launch.run('chip_smoke:mesh_graph_rank', ({},), devices,
+                       workdir=d)
+    if {r['backend'] for r in ranks} != {'nccl'}:
+        raise AssertionError(f'phase 5m: backends {ranks}')
+    for model in ('vad_v8', 'eff_b0_v1'):
+        for run, r in ranks[0][model].items():
+            if isinstance(r, dict) and 'digest' in r and len({
+                    rk[model][run]['digest'] for rk in ranks}) != 1:
+                raise AssertionError(f'phase 5m {model} {run}: the ranks\' '
+                                     'state_dicts differ')
+        if len({json.dumps([{k: v for k, v in lg.items() if k != 'time'}
+                            for lg in rk[model]['fit']['logs']])
+                for rk in ranks}) != 1:
+            raise AssertionError(f'phase 5m {model}: the ranks log '
+                                 'different metrics')
+    return ranks[0]
+
+
+def mesh_graph_checks(d: str) -> dict:
+    """Phase 5m: the mesh steps as CUDA graphs over NCCL, a one-rank mesh
+    on this card, and a two-rank one where two cards are visible."""
+    start = time.perf_counter()
+    res = {'torch': torch.__version__,
+           'nccl': '.'.join(map(str, torch.cuda.nccl.version())),
+           'one_rank': mesh_graph_run([torch.device('cuda', 0)], d)}
+    if torch.cuda.device_count() >= 2:
+        res['two_ranks'] = mesh_graph_run(
+            [torch.device('cuda', i) for i in range(2)], d)
+    else:
+        res['two_ranks'] = None
+        log('phase 5m: the two-rank NCCL run needs two cards; this host '
+            'has one')
+    res['launches'] = {
+        k: sum(r[run]['launches'].get(k, 0) for r in (
+            res['one_rank']['vad_v8'], res['one_rank']['eff_b0_v1'])
+            for run in r
+            if isinstance(r[run], dict) and 'launches' in r[run])
+        for k in (KERNELS[torch.float32][0], 'synth_mag_int8')}
+    res['mesh_5m_s'] = time.perf_counter() - start
+    log(f'phase 5m: {res["mesh_5m_s"]:.3f} s')
     return res
 
 
@@ -3696,6 +3989,12 @@ def main(argv) -> int:
                                mesh_dir)
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
+    # 5m. the mesh steps as CUDA graphs over NCCL, a rank a card
+    mesh_dir = tempfile.mkdtemp(prefix='chip_smoke_5m_')
+    try:
+        mesh_graph_res = mesh_graph_checks(mesh_dir)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
     # 5l. this slice's main path: the graphed iterator and validation steps
     # of the density defaults, vad v8 and eff B0 v1, the graphed fused
     # eval step, sample_batch's routes
@@ -3927,6 +4226,7 @@ def main(argv) -> int:
                             for dt in ('float32', 'int8')},
         'times': 'two ranks on one card, not a speed measurement',
         'card': smi}))
+    log('MESH_GRAPH ' + json.dumps({**mesh_graph_res, 'card': smi}))
     log('ITER ' + json.dumps({**iter_res, 'card': smi}))
     keras = cli['keras']
     log('KERAS ' + json.dumps({**{k: v for k, v in keras.items()
@@ -3973,6 +4273,7 @@ def main(argv) -> int:
         'keras_7h_launches': keras.get('keras_launches', {}).get(name, 0),
         'mesh_5k_launches': sum(c.get(name, 0) for dt in ('float32', 'int8')
                                 for c in mesh_res[f'{dt}_launches']),
+        'mesh_5m_launches': mesh_graph_res['launches'].get(name, 0),
         'iter_5l_launches': (iter_res['launches'] if name == f32_kernel
                              else 0)
         + iter_res['sample_batch']['launches'].get(name, 0),

@@ -24,7 +24,8 @@ on the card, where chip_smoke.py phase 5l holds them against ``.plain`` at
   ``restore_train_state``, the CLIs' ``resume``, ``set_learning_rate``
   through ``LearningRateScheduler`` and ``ReduceLROnPlateau``, and
   ``TrainStateCheckpoint``;
-* a mesh keeps the eager path, as the mesh fused step does.
+* a mesh whose collectives cannot be captured (gloo) keeps the eager
+  path, as the gloo mesh fused step does.
 """
 
 import contextlib
@@ -349,15 +350,15 @@ def test_fused_steps_share_the_scheme():
 
 
 def test_a_mesh_keeps_the_eager_path(monkeypatch):
-    """With a mesh the step runs ``plain`` even on a CUDA module (gloo
-    cannot be captured); without one it goes to its graphs."""
+    """With a mesh that cannot be captured (gloo) the step runs ``plain``
+    even on a CUDA module; without one it goes to its graphs."""
     bundle, _, batch = _vad()
     monkeypatch.setattr(state_lib, 'on_cuda', lambda state: True)
 
     def no_graph(*a, **kw):
         raise AssertionError('captured')
     monkeypatch.setattr(graph_lib.StepGraphs, '__call__', no_graph)
-    mesh = type('Mesh', (), {'size': 1})()
+    mesh = type('Mesh', (), {'size': 1, 'capturable': False})()
     monkeypatch.setattr(state_lib, 'reduce_metrics',
                         lambda metrics, m: metrics)
     for step in (TrainStep(bundle, mesh=mesh), EvalStep(bundle, mesh=mesh)):

@@ -109,6 +109,24 @@ def test_clis_and_eval_do_not_fall_back_to_the_cpu(tmp_path, monkeypatch):
          'test_bg.pickle', 'test_voice.pickle', 'test_labels.npy'])
 
 
+@pytest.mark.parametrize('script,target', [
+    ('challenge-tpu-torch-train', 'challenge_tpu_torch.cli.sj_train:main'),
+    ('challenge-tpu-torch-trainer', 'challenge_tpu_torch.cli.trainer:main'),
+    ('challenge-tpu-torch-eval', 'challenge_tpu_torch.cli.eval:main'),
+    ('challenge-tpu-torch-results',
+     'challenge_tpu_torch.cli.get_csv_data:main')])
+def test_console_scripts_name_the_port_clis(script, target):
+    """pyproject.toml's ``[project.scripts]`` names each CLI of the port,
+    and its target resolves to a callable ``main``."""
+    import importlib
+    import tomllib
+    with open(ROOT / 'pyproject.toml', 'rb') as f:
+        scripts = tomllib.load(f)['project']['scripts']
+    assert scripts[script] == target
+    module, _, attr = target.partition(':')
+    assert callable(getattr(importlib.import_module(module), attr))
+
+
 def test_get_model_v8_is_full_width():
     """get_model builds vad v8 at the JAX registry's width (base 48,
     td_dim 1024): same parameter count as the flax module."""
