@@ -383,7 +383,22 @@ without the result line:
    path's, with equal ERs, the three timed in turns after a warm-up
    turn; the batched eval's peak memory per PCM byte for vad v8 and v9,
    se v9 and eff B0 v1 and B7 v6; and ``cli.get_csv_data`` on the run's
-   directory: one row, the trio's ERs at overlap_hop 256.
+   directory: one row, the trio's ERs at overlap_hop 256;
+9. the trained-ER demonstration (``challenge_tpu_torch.scripts.
+   trained_er_demo``, JAX's ``scripts/trained_er_demo.py``) at JAX's
+   defaults, once on float32 banks (kernel B1) and once on int8 banks
+   (B3-int8), from the same corpus seed: vad v8 at full width trained by
+   ``cli.sj_train`` for 20 epochs of 100 steps (snr -6), scored on 6
+   synthesized clips of 60 s before training (``evaluate()``) and after
+   it (``cli.eval`` on the best and the SWA checkpoints). Each run's
+   counts are set to 0 just before it and read just after: its kernel
+   must have launched once a batch (2,000 training and 320 validation
+   batches). Every ER must be finite, the best and the SWA mean ER must
+   lie below the untrained mean in both runs, and ``{run}.h5`` and
+   ``{run}_SWA.h5`` must exist. The ``ER_DEMO`` line holds each run's
+   ERs, the eval callback's scores, the grid statistics, the fit's
+   seconds and the int8 run's mean trained ER less the float32 run's,
+   beside JAX's bound of 0.09 (reported, not enforced).
 
 The last lines are the card's name and power limit as nvidia-smi gives
 them, one JSON object ``{"kernels": [...]}`` and, last,
@@ -440,7 +455,8 @@ from challenge_tpu_torch.ops.synth import (
     synthesize_flat, synthesize_flat_plain, synthesize_magnitude,
     synthesize_magnitude_plain, synthesize_mel, synthesize_mel_plain,
     synthesize_se, synthesize_se_plain)
-from challenge_tpu_torch.train import SWA, TrainStateCheckpoint
+from challenge_tpu_torch.scripts import trained_er_demo
+from challenge_tpu_torch.train import SWA, EvalCallback, TrainStateCheckpoint
 from challenge_tpu_torch.train.checkpoint import (
     checkpoint_steps, load_weights, restore_train_state, save_train_state,
     save_weights, train_state_tensors)
@@ -481,6 +497,11 @@ MESH_GRAPH_EPOCHS, MESH_GRAPH_FIT_STEPS = 2, 3     # phase 5m's fit
 MESH_GRAPH_TIMED_STEPS = 10    # phase 5m, each turn
 ITER_STEPS, ITER_VAL_STEPS = 2, 1      # phase 5l, beyond each capture
 ITER_TIMED_STEPS = 10                  # phase 5l, each turn
+ER_DEMO_EPOCHS, ER_DEMO_STEPS = 20, 100     # phase 9: JAX's defaults
+ER_DEMO_VAL_STEPS = 16                      # cli.sj_train's, each epoch
+ER_DEMO_INT8_BOUND = 0.09      # phase 9: JAX's bound on the int8 run's
+                               # trained ER less float32's
+                               # (tests/test_train.py:579), reported only
 SR = 16000
 CUT_S = 8                      # phase 8's clips, seconds
 SCORE_TOL = 1e-5               # phase 8: card vs CPU, times the peak
@@ -3645,6 +3666,85 @@ def cli_chain(dev, train_src, test_src, chan4_model) -> dict:
     return res
 
 
+def er_demo_run(bank_dtype: str) -> dict:
+    """One phase 9 run of the trained-ER demo on ``bank_dtype`` banks, in a
+    temporary directory that is removed after, with the launch counts set
+    to 0 just before and read just after, and the eval callback's scores
+    recorded. Raises on a non-finite ER, a trained mean ER not below the
+    untrained one, a missing checkpoint or a batch that missed the
+    kernel."""
+    kernel = KERNELS[FLAT_DTYPES[bank_dtype]][0]
+    callback_ers = []
+    on_epoch_end = EvalCallback.on_epoch_end
+
+    def recorded(self, epoch, logs):
+        on_epoch_end(self, epoch, logs)
+        if 'challenge_er' in logs:
+            callback_ers.append([epoch, logs['challenge_er']])
+
+    d = tempfile.mkdtemp(prefix=f'chip_smoke_9_{bank_dtype}_')
+    try:
+        with mock.patch.object(EvalCallback, 'on_epoch_end', recorded):
+            cuda.reset_launch_counts()
+            out = trained_er_demo.demo(d, 'cuda', ER_DEMO_EPOCHS,
+                                       ER_DEMO_STEPS, bank_dtype)
+            torch.cuda.synchronize()
+            launches = dict(cuda.LAUNCHES)
+        trio = {s: os.path.isfile(os.path.join(d, out['run'] + s + '.h5'))
+                for s in ('', '_SWA', '_sample')}
+        with open(os.path.join(d, out['run'] + '.csv')) as f:
+            epoch_logs = [[int(r['epoch'])] + [float(r[k]) for k in (
+                'loss', 'f1_score', 'val_loss', 'val_f1_score', 'val_er')]
+                for r in csv.DictReader(f)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    steps = ER_DEMO_EPOCHS * ER_DEMO_STEPS
+    res = {'run': out['run'], 'kernel': kernel, 'launches': launches,
+           'batches': steps + ER_DEMO_EPOCHS * ER_DEMO_VAL_STEPS,
+           **{f'{k}_ers': out[k] for k in ('untrained', 'best', 'swa')},
+           **{f'{k}_mean_er': float(np.mean(out[k]))
+              for k in ('untrained', 'best', 'swa')},
+           'callback_ers': callback_ers, 'grid_stats': out['stats'],
+           'epoch_logs': {'columns': ['epoch', 'loss', 'f1_score',
+                                      'val_loss', 'val_f1_score', 'val_er'],
+                          'rows': epoch_logs},
+           'fit_s': out['fit_s'], 'fit_ms_a_step': out['fit_s'] * 1e3 / steps,
+           'trio': trio}
+    log(f'phase 9 {bank_dtype}: ' + json.dumps(res))
+    ers = [*out['untrained'], *out['best'], *out['swa'],
+           *(e for _, e in callback_ers)]
+    if not all(map(math.isfinite, ers)) or not all(
+            math.isfinite(v) for st in out['stats'].values()
+            for v in st.values()):
+        raise AssertionError(f'phase 9 {bank_dtype}: a non-finite ER or '
+                             'grid statistic')
+    for k in ('best', 'swa'):
+        if not res[f'{k}_mean_er'] < res['untrained_mean_er']:
+            raise AssertionError(
+                f'phase 9 {bank_dtype}: the {k} mean ER '
+                f'{res[f"{k}_mean_er"]} is not below the untrained '
+                f'{res["untrained_mean_er"]}')
+    if not (trio[''] and trio['_SWA']):
+        raise AssertionError(f'phase 9 {bank_dtype}: checkpoints {trio}')
+    if launches.get(kernel, 0) != res['batches']:
+        raise AssertionError(f'phase 9 {bank_dtype}: {kernel} ran '
+                             f'{launches.get(kernel, 0)} times for '
+                             f'{res["batches"]} batches')
+    return res
+
+
+def er_demo_checks() -> dict:
+    """Phase 9: the trained-ER demo on float32, then on int8 banks."""
+    t0 = time.perf_counter()
+    runs = {dt: er_demo_run(dt) for dt in ('float32', 'int8')}
+    res = {**runs, 'int8_minus_f32': {
+        k: runs['int8'][f'{k}_mean_er'] - runs['float32'][f'{k}_mean_er']
+        for k in ('best', 'swa')}, 'jax_int8_bound': ER_DEMO_INT8_BOUND,
+        'er_demo_9_s': time.perf_counter() - t0}
+    log(f'phase 9: {res["er_demo_9_s"]:.3f} s')
+    return res
+
+
 def clip_windows(cfg, module, paths):
     """The model inputs (log-mel windows) of ``paths``, concatenated."""
     windows = []
@@ -4165,6 +4265,9 @@ def main(argv) -> int:
     cli = cli_chain(dev, src, test_src, chan4_model)
     del src
 
+    # 9. the trained-ER demonstration at JAX's defaults
+    er_demo = er_demo_checks()
+
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -4236,6 +4339,7 @@ def main(argv) -> int:
                              and not k.startswith(('density', 'bf16_',
                                                    'loss_optim',
                                                    'stream_', 'keras'))}))
+    log('ER_DEMO ' + json.dumps({**er_demo, 'card': smi}))
     log(smi)
     runs = {'synth_mag_f32': (launches, TRAIN_STEPS + VAL_STEPS),
             'synth_mag_bf16': (cli['bf16_launches'], cli['bf16_batches']),
@@ -4277,6 +4381,8 @@ def main(argv) -> int:
         'iter_5l_launches': (iter_res['launches'] if name == f32_kernel
                              else 0)
         + iter_res['sample_batch']['launches'].get(name, 0),
+        'er_demo_9_launches': sum(er_demo[dt]['launches'].get(name, 0)
+                                  for dt in ('float32', 'int8')),
         'max_abs_err': max(errs[name].values()),
         **timing[name], 'library_ms': None} for name in runs]}))
     log(json.dumps({'ok': True, 'device': {
