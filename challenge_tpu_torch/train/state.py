@@ -93,10 +93,11 @@ def reduce_metrics(metrics: dict, mesh) -> dict:
 
 
 def reduce_grads(grads, mesh):
-    """The ranks' gradients summed and divided by their count."""
+    """The ranks' gradients summed: each rank's is already its loss's over
+    the mesh size (``make_grad_update``)."""
     grads = [g.clone() for g in grads]
     mesh.all_reduce_(grads)
-    return [g / mesh.size for g in grads]
+    return grads
 
 
 def make_grad_update(bundle: ModelBundle, loss_fn=None, mesh=None):
@@ -127,9 +128,14 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None, mesh=None):
     (state.py:115-127), so Keras Adam's moments of those weights stay 0
     and their update is exactly 0: the weights stay bit-identical.
 
-    With a ``mesh``, ``grad_fn`` runs its forward and backward with
-    cross-replica BN statistics, and ``update_fn`` first reduces the
-    gradients over the ranks (:func:`reduce_grads`)."""
+    With a ``mesh`` of W ranks, ``grad_fn`` runs its forward and backward
+    with cross-replica BN statistics and differentiates its share's loss
+    divided by W, and ``update_fn`` first sums the gradients over the
+    ranks (:func:`reduce_grads`). The models' output is float32, so the
+    gradient there is rounded to float32: scaled by 1/W before that
+    rounding, it rounds as one process's gradient of the global batch's
+    mean does. Dividing the summed gradients by W instead moved them by
+    up to 1e-7 of their peak when W is not a power of 2."""
     config = bundle.config
     loss_fn = loss_fn or get_loss(config)
     metric_fns = metrics_lib.batch_metrics(config)
@@ -144,9 +150,9 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None, mesh=None):
         if mesh is None:
             return local_grad_fn(module, batch, gen)
         with cross_replica(mesh):
-            return local_grad_fn(module, batch, gen)
+            return local_grad_fn(module, batch, gen, mesh.size)
 
-    def local_grad_fn(module: nn.Module, batch, gen=None):
+    def local_grad_fn(module: nn.Module, batch, gen=None, ranks: int = 1):
         x, y = batch
         module.train()
 
@@ -161,7 +167,8 @@ def make_grad_update(bundle: ModelBundle, loss_fn=None, mesh=None):
                 context_fn=remat_contexts)
         else:
             loss, parts, out = loss_of(x)
-        grads = torch.autograd.grad(loss, list(module.parameters()))
+        grads = torch.autograd.grad(loss / ranks if ranks > 1 else loss,
+                                    list(module.parameters()))
         with torch.no_grad():
             return grads, _metrics(metric_fns, loss, parts, y, out)
 

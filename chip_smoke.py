@@ -209,18 +209,20 @@ without the result line:
    (``chunk_steps`` 3, so the resume lands mid-rotation); then
    ``ckpt_save_ms`` and ``ckpt_restore_ms`` of vad v8 and of the density
    model at the trainer's defaults (17,564,315 parameters);
-5k. the data-parallel mesh (``parallel/``): two ranks share the card over
-   gloo, this process rank 0 and a child rank 1 (``parallel.launch``),
-   with vad v8 at full width and batch 12, 6 a rank. One SGD step of
+5k. the data-parallel mesh (``parallel/``): three ranks share the card
+   over gloo, this process rank 0 and children ranks 1 and 2
+   (``parallel.launch``), with vad v8 at full width and batch 12, 4 a
+   rank. One SGD step of
    ``make_sharded_train_step`` on a fixed global batch against the
    one-process step on it (loss rtol 1e-5, every weight and BN statistic
    rtol 1e-4 / atol 1e-6, JAX's bounds in tests/test_parallel.py); 3
    fused mesh steps on replicated float32 banks and 3 on ``--bank_shard``
-   int8 banks (each rank its block), one ``synth_mag_f32`` or
+   int8 banks (each rank its block: the 8 backgrounds, 64 voices and 16
+   noises padded cyclically to 9, 66 and 18), one ``synth_mag_f32`` or
    ``synth_mag_int8`` launch a step in each rank, the ranks'
    ``state_dict``s equal bit for bit after them; the fused mesh step and
    the one-process eager step timed in turns (mesh, one, one, mesh) on
-   the float32 banks: two ranks on one card, not a speed measurement;
+   the float32 banks: three ranks on one card, not a speed measurement;
    ``evaluate(mesh=)`` on a 6 x 60 s dev set, each rank a block of each
    chunk's clips, its grids and ERs equal to the one-process batched
    eval's on both ranks; then ``utils.profiling.trace`` around two
@@ -249,6 +251,25 @@ without the result line:
    ``fused_step_ms``, 10 steps a turn). With two ranks, their states
    after each run and their logs equal bit for bit. Printed on the
    ``MESH_GRAPH`` line;
+5n. JAX's multi-device dryrun (``__graft_entry__.py``) on the port:
+   ``dryrun.dryrun_multichip(4)``, four ranks sharing the card over gloo,
+   eager, each running JAX's six parts on small shapes (vad v3, 80 mels x
+   64 frames, batch 8; se v9 pretrain, batch 4): the fused mesh step on
+   float32 banks, then with remat, ``--bank_shard`` bfloat16 banks and
+   ``grad_accum`` 2, then on bank-sharded int8 banks; se v9 on int8
+   banks; ``TrainLoop.fit`` over a 2-chunk rotation, 2 epochs of 2
+   steps; ``evaluate(mesh=)`` of 2 clips of 2 s. Each rank launches
+   ``synth_mag_f32`` once in the first part and 4 times in the fit,
+   ``synth_mag_bf16`` twice, ``synth_mag_int8`` and ``synth_se_int8``
+   once, and no other kernel (the counts of each part set to 0 just
+   before it); each of the four instances is held to its plain version
+   at 0.0 on the arguments of its first launch on rank 0; the ranks'
+   weights and metrics equal bit for bit after each part, and the mesh's
+   grids and ERs equal the one-process ``evaluate`` of rank 0's weights.
+   Then ``dryrun.entry()``: vad v8's eval-mode forward at 12 x 80 x 512 x
+   2 on the card, finite and equal to the module's own forward at 0.0
+   under cuDNN's deterministic algorithms. Printed on the ``DRYRUN``
+   line (the seconds of each part on each rank, the ERs);
 5l. graphed iterator and validation steps (``train/state.py``
    ``TrainStep``, ``EvalStep``; ``train/graph.py``): the density trainer's
    defaults (on the 2,048-frame float32 banks, its loss with the l2
@@ -431,7 +452,7 @@ import numpy as np
 import torch
 
 from challenge_tpu_torch import (
-    Config, DevicePipeline, TrainLoop, build_banks, get_model)
+    Config, DevicePipeline, TrainLoop, build_banks, dryrun, get_model)
 from challenge_tpu_torch.cli import eval as eval_cli
 from challenge_tpu_torch.cli import sj_train, trainer
 from challenge_tpu_torch.data import mixture
@@ -488,13 +509,21 @@ BF16_TIMED_STEPS = 10                      # phase 5h, each turn (se: 5)
 STREAM_CHUNKS = 4                          # phases 5i, 5j
 STREAM_TIMED_STEPS = 16                    # phase 5i, each turn
 RESUME_EPOCHS, RESUME_STEPS, RESUME_STOP = 4, 5, 2     # phase 5j
-MESH_SIZE, MESH_STEPS, MESH_TIMED_STEPS = 2, 3, 5      # phase 5k
+MESH_SIZE, MESH_STEPS, MESH_TIMED_STEPS = 3, 3, 5      # phase 5k
 MESH_TIMER_TOL = 0.10          # phase 5k: StepTimer against fused_step_ms
 MESH_GRAPH_CALLS = 3           # phase 5m: each step's calls, graphed and plain
 MESH_GRAPH_INT8 = (2, 4, 2)    # phase 5m, int8: calls, steps_per_call,
                                # grad_accum
 MESH_GRAPH_EPOCHS, MESH_GRAPH_FIT_STEPS = 2, 3     # phase 5m's fit
 MESH_GRAPH_TIMED_STEPS = 10    # phase 5m, each turn
+DRYRUN_SIZE = 4                # phase 5n: gloo ranks sharing the card
+# phase 5n: the launches a rank in each part of dryrun_multichip
+DRYRUN_LAUNCHES = {'fused': {'synth_mag_f32': 1},
+                   'capacity': {'synth_mag_bf16': 2},     # grad_accum 2
+                   'int8': {'synth_mag_int8': 1},
+                   'se': {'synth_se_int8': 1},
+                   'stream': {'synth_mag_f32': 4},        # 2 epochs of 2
+                   'eval': {}}
 ITER_STEPS, ITER_VAL_STEPS = 2, 1      # phase 5l, beyond each capture
 ITER_TIMED_STEPS = 10                  # phase 5l, each turn
 ER_DEMO_EPOCHS, ER_DEMO_STEPS = 20, 100     # phase 9: JAX's defaults
@@ -1770,16 +1799,6 @@ def resume_checks(resident, chunks) -> dict:
     return res
 
 
-def state_digest(module) -> str:
-    """A hash of every byte of ``module``'s weights and BN statistics."""
-    h = hashlib.sha256()
-    for k, v in module.state_dict().items():
-        h.update(k.encode())
-        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy()
-                 .tobytes())
-    return h.hexdigest()
-
-
 def grids_digest(grids) -> list:
     return [hashlib.sha256(np.ascontiguousarray(g).tobytes()).hexdigest()
             for g in grids]
@@ -1797,8 +1816,8 @@ def mesh_banks(dtype: str, shard: bool, mesh):
 
 def mesh_rank(args: dict) -> dict:
     """What each rank of phase 5k runs; rank 0 is this script's process,
-    rank 1 a child that imports this module. Rank 0 returns the tensors
-    it is held to, rank 1 their hashes."""
+    the others children that import this module. Rank 0 returns the
+    tensors it is held to, the others their hashes."""
     mesh = current()
     dev = mesh.device
     out = {'rank': mesh.rank, 'backend': mesh.backend}
@@ -1811,7 +1830,7 @@ def mesh_rank(args: dict) -> dict:
     metrics = make_sharded_train_step(bundle, mesh)(
         state, shard_batch((x, y), mesh))
     out['sgd_loss'] = float(metrics['loss'])
-    out['sgd_digest'] = state_digest(bundle.module)
+    out['sgd_digest'] = dryrun.digest(bundle.module)
     if mesh.rank == 0:
         out['sgd_state'] = {k: v.detach().clone()
                             for k, v in bundle.module.state_dict().items()}
@@ -1833,7 +1852,7 @@ def mesh_rank(args: dict) -> dict:
         torch.cuda.synchronize()
         out[f'{dtype}_launches'] = dict(cuda.LAUNCHES)
         out[f'{dtype}_losses'] = losses
-        out[f'{dtype}_digest'] = state_digest(bundle.module)
+        out[f'{dtype}_digest'] = dryrun.digest(bundle.module)
         out[f'{dtype}_voices'] = banks.voices.n
         if dtype == 'float32':
             # the mesh step and, on rank 0 alone, the one-process eager
@@ -1867,9 +1886,9 @@ def mesh_rank(args: dict) -> dict:
 
 
 def mesh_checks(dev, banks, fused_step_ms, d: str) -> dict:
-    """Phase 5k: the data-parallel mesh, two ranks on this card over gloo
-    (the module docstring); then ``utils.profiling`` around graphed vad v8
-    steps. Raises where a rank fails or a check does not hold."""
+    """Phase 5k: the data-parallel mesh, three ranks on this card over
+    gloo (the module docstring); then ``utils.profiling`` around graphed
+    vad v8 steps. Raises where a rank fails or a check does not hold."""
     start = time.perf_counter()
     cfg = Config(model_type='vad', v=8, optimizer='sgd')
     x, y = FeatureFn(cfg, device=dev)(
@@ -2027,7 +2046,7 @@ def mesh_graph_pair(what: str, make, calls: int, expected: dict,
          'launches': launches,
          'captured_launches': [dict(g.launches)
                                for g in step.graphs.graphs.values()],
-         'digest': state_digest(state.module)}
+         'digest': dryrun.digest(state.module)}
     check_launches(f'mesh graph {what}', launches, expected)
     eager = [e[1:] for e in first if not e[0]]
     captured = [e[1:] for e in first if e[0]]
@@ -2131,7 +2150,7 @@ def mesh_graph_model(cfg, banks, mesh) -> dict:
     fit = {'launches': dict(cuda.LAUNCHES), 'logs': hist,
            'captures': [loop.train_step.graphs.captures,
                         loop.eval_step.graphs.captures],
-           'digest': state_digest(loop.state.module)}
+           'digest': dryrun.digest(loop.state.module)}
     check_launches(f'mesh graph {cfg.model_type} fit', fit['launches'],
                    {f32: MESH_GRAPH_EPOCHS * (MESH_GRAPH_FIT_STEPS + 1)})
     if fit['captures'] != [1, 1] or not all(
@@ -2241,6 +2260,89 @@ def mesh_graph_checks(d: str) -> dict:
         for k in (KERNELS[torch.float32][0], 'synth_mag_int8')}
     res['mesh_5m_s'] = time.perf_counter() - start
     log(f'phase 5m: {res["mesh_5m_s"]:.3f} s')
+    return res
+
+
+@contextlib.contextmanager
+def first_synth_args():
+    """``ops.synth``'s magnitude and se-triple wrappers, which
+    ``data.mixture`` calls, recording in this process a copy of the
+    arguments of each kernel's first launch: yields ``{kernel: (wrapper
+    name, arguments)}``."""
+    seen = {}
+    real = {'synthesize_magnitude': synth_lib.synthesize_magnitude,
+            'synthesize_se': synth_lib.synthesize_se}
+
+    def recording(name):
+        def fn(*args):
+            dt = args[1].dtype
+            kernel = (KERNELS[dt][0] if name == 'synthesize_magnitude'
+                      else SE_KERNELS[dt])
+            if kernel not in seen:
+                seen[kernel] = (name, tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args))
+            return real[name](*args)
+        return fn
+    for name in real:
+        setattr(synth_lib, name, recording(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(synth_lib, name, fn)
+
+
+def dryrun_checks() -> dict:
+    """Phase 5n: ``dryrun.dryrun_multichip(4)``, four gloo ranks sharing
+    this card, and ``dryrun.entry()``. Each rank's launches a part are
+    ``DRYRUN_LAUNCHES``; each kernel instance of rank 0's parts is held to
+    its plain version at 0.0 on the arguments of its first launch there;
+    ``dryrun_multichip`` itself holds the ranks bit for bit after each
+    part and the mesh's eval to the one-process eval; ``entry``'s forward
+    is finite and equals the module's own eval forward at 0.0 under
+    cuDNN's deterministic algorithms."""
+    start = time.perf_counter()
+    with first_synth_args() as seen:
+        report = dryrun.dryrun_multichip(DRYRUN_SIZE)
+    res = {k: report[k] for k in ('ranks', 'backend', 'devices', 'seconds',
+                                  'launches')}
+    res['launches_a_rank'] = report['launches'][0]
+    for r, launches in enumerate(report['launches']):
+        for part, expected in DRYRUN_LAUNCHES.items():
+            check_launches(f'dryrun rank {r} {part}', launches[part],
+                           expected)
+    res['max_abs_err'] = {
+        kernel: (max_abs_diff(args) if name == 'synthesize_magnitude'
+                 else se_diff(args))
+        for kernel, (name, args) in seen.items()}
+    log('dryrun kernel vs plain, max abs diff: '
+        + json.dumps(res['max_abs_err']))
+    kernels = {k for e in DRYRUN_LAUNCHES.values() for k in e}
+    if set(seen) != kernels or any(v != 0.0
+                                   for v in res['max_abs_err'].values()):
+        raise AssertionError(f'dryrun: kernels {sorted(seen)} vs '
+                             f'{sorted(kernels)}, {res["max_abs_err"]}')
+    res['metrics'] = report['metrics']
+    res['ers'] = report['metrics']['eval']['ers']
+    res['dryrun_s'] = time.perf_counter() - start
+    # entry(): vad v8 at 12 x 80 x 512 x 2, eval mode
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry()
+    module = get_model(dryrun.ENTRY_CONFIG, seed=0).module.eval()
+    with cudnn_deterministic(), torch.no_grad():
+        out = fn(*args)
+        ref = module(args[1])
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()) or not torch.equal(out, ref):
+        raise AssertionError(f'entry: finite {bool(torch.isfinite(out).all())}'
+                             f', max abs diff from the module '
+                             f'{float((out - ref).abs().max())}')
+    res['entry_out_shape'] = list(out.shape)
+    res['entry_s'] = time.perf_counter() - t0
+    del fn, args, module, out, ref
+    torch.cuda.empty_cache()
+    res['dryrun_5n_s'] = time.perf_counter() - start
+    log(f'phase 5n: {res["dryrun_5n_s"]:.3f} s')
     return res
 
 
@@ -4095,6 +4197,8 @@ def main(argv) -> int:
         mesh_graph_res = mesh_graph_checks(mesh_dir)
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
+    # 5n. JAX's multi-device dryrun on four ranks, and entry()
+    dryrun_res = dryrun_checks()
     # 5l. this slice's main path: the graphed iterator and validation steps
     # of the density defaults, vad v8 and eff B0 v1, the graphed fused
     # eval step, sample_batch's routes
@@ -4327,9 +4431,12 @@ def main(argv) -> int:
            if not k.endswith('launches')},
         'launches_a_rank': {dt: mesh_res[f'{dt}_launches']
                             for dt in ('float32', 'int8')},
-        'times': 'two ranks on one card, not a speed measurement',
+        'times': f'{MESH_SIZE} ranks on one card, not a speed measurement',
         'card': smi}))
     log('MESH_GRAPH ' + json.dumps({**mesh_graph_res, 'card': smi}))
+    log('DRYRUN ' + json.dumps({
+        **{k: v for k, v in dryrun_res.items()
+           if k not in ('launches', 'metrics')}, 'card': smi}))
     log('ITER ' + json.dumps({**iter_res, 'card': smi}))
     keras = cli['keras']
     log('KERAS ' + json.dumps({**{k: v for k, v in keras.items()
@@ -4378,6 +4485,8 @@ def main(argv) -> int:
         'mesh_5k_launches': sum(c.get(name, 0) for dt in ('float32', 'int8')
                                 for c in mesh_res[f'{dt}_launches']),
         'mesh_5m_launches': mesh_graph_res['launches'].get(name, 0),
+        'dryrun_5n_launches_a_rank': sum(
+            c.get(name, 0) for c in dryrun_res['launches_a_rank'].values()),
         'iter_5l_launches': (iter_res['launches'] if name == f32_kernel
                              else 0)
         + iter_res['sample_batch']['launches'].get(name, 0),

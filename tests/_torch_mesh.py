@@ -1,6 +1,6 @@
-"""What each rank of the 2-rank CPU meshes of tests/test_torch_mesh.py
-and tests/test_torch_mesh_graph.py runs (``parallel.launch.run`` imports
-it in each rank by name).
+"""What each rank of the CPU meshes of tests/test_torch_mesh.py (2, 3 and
+4 ranks) and tests/test_torch_mesh_graph.py (2 ranks) runs
+(``parallel.launch.run`` imports it in each rank by name).
 
 It imports neither JAX nor the JAX package, so a rank starts in about a
 second: the test process computes every input with numpy (and JAX) and
@@ -15,9 +15,12 @@ import numpy as np
 import torch
 
 from challenge_tpu_torch.config import Config
-from challenge_tpu_torch.data.pipeline import build_banks
+from challenge_tpu_torch.data import pipeline
+from challenge_tpu_torch.data.pipeline import FeatureFn, build_banks
+from challenge_tpu_torch.data.streaming import build_streaming_banks
+from challenge_tpu_torch.dryrun import digest
 from challenge_tpu_torch.evaluate import infer
-from challenge_tpu_torch.models.registry import ModelBundle
+from challenge_tpu_torch.models.registry import ModelBundle, get_model
 from challenge_tpu_torch.models.vad import VADModel
 from challenge_tpu_torch.parallel import mesh as mesh_lib
 from challenge_tpu_torch.parallel import train as ptrain
@@ -25,6 +28,7 @@ from challenge_tpu_torch.parallel.train import (
     make_fused_eval_step, make_fused_train_step, make_sharded_eval_step,
     make_sharded_train_step)
 from challenge_tpu_torch.train import state as state_lib
+from challenge_tpu_torch.train.loop import TrainLoop
 from challenge_tpu_torch.train.optim import make_optimizer
 from challenge_tpu_torch.train.state import TrainState, init_state
 
@@ -130,11 +134,117 @@ def eval_grids(cfg: dict, state_dict: dict, dev: str, mesh=None) -> dict:
                      .numpy() for i, p in enumerate(paths)]}
 
 
+def _cat(parts):
+    """The shares ``parts`` (tensors, or nested tuples of them) joined on
+    the leading axis, as the global batch they make."""
+    if isinstance(parts[0], (tuple, list)):
+        return type(parts[0])(_cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def _double(batch):
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_double(b) for b in batch)
+    return batch.double()
+
+
+def rank_seed(key, rank: int) -> int:
+    """The generator seed of ``key`` (a list of ints) on ``rank``."""
+    return int(np.random.SeedSequence(list(key) + [rank])
+               .generate_state(1)[0])
+
+
+class Shares:
+    """The one-process stand-in of a mesh's draws: ``(gen, banks)`` ->
+    the global batch as the ``size`` ranks of a mesh draw it, each its
+    ``batch_size // size`` share from ``banks`` with its own generator
+    (``gens``, seeded by the caller as each rank's), joined in rank
+    order; the ``gen`` the step passes is not used."""
+
+    def __init__(self, config: Config, size: int):
+        local = config.replace(batch_size=config.batch_size // size)
+        self.features = FeatureFn(local, True, 'cpu')
+        self.gens = [torch.Generator() for _ in range(size)]
+
+    def __call__(self, gen, banks):
+        return _cat([self.features(g, banks) for g in self.gens])
+
+
+@contextlib.contextmanager
+def float64_features():
+    """Every ``FeatureFn`` batch cast to float64, for a float64 model."""
+    call = FeatureFn.__call__
+    with mock.patch.object(pipeline.FeatureFn, '__call__',
+                           lambda self, *a: _double(call(self, *a))):
+        yield
+
+
+def se_step(cfg: dict, sources, mesh=None, ranks: int = 0) -> dict:
+    """One float32 fused step of full-width se v9 (``cfg``'s batch, its
+    pretrain flag) on float32 banks from ``sources``, from seed-1
+    weights: over ``mesh``, each rank drawing its share with the
+    generator of seed 100 + rank, or in one process on the global batch
+    that ``ranks`` ranks draw so (:class:`Shares`)."""
+    config = Config(**cfg)
+    b = get_model(config, 'cpu')
+    state = init_state(b, seed=1)
+    banks = build_banks(*sources, n_frame=config.n_frame, device='cpu')
+    if mesh is not None:
+        mesh_lib.replicate(state.module, mesh)
+        step = make_fused_train_step(b, config, mesh=mesh)
+        gen = torch.Generator().manual_seed(100 + mesh.rank)
+    else:
+        step = make_fused_train_step(b, config)
+        step.features = Shares(config, ranks)
+        for r, g in enumerate(step.features.gens):
+            g.manual_seed(100 + r)
+        gen = None
+    metrics = {k: v.numpy().copy() for k, v in step(state, banks,
+                                                    gen).items()}
+    return {'logs': [metrics], 'digest': digest(state.module),
+            'step': state.step}
+
+
+def stream_fit(cfg: dict, sources, epochs: int, steps: int,
+               mesh=None, ranks: int = 0) -> dict:
+    """``TrainLoop.fit`` of the small vad model of ``cfg`` in float64
+    over a 2-chunk rotation of ``sources`` (``build_streaming_banks``):
+    on ``mesh``,
+    each rank drawing its share with its own generator, or in one process
+    on the global batches that ``ranks`` ranks draw (:class:`Shares`,
+    seeded as ``TrainLoop.phase_gen`` seeds each rank's). The final state
+    and the epochs' logs."""
+    b = bundle(cfg)
+    stream = build_streaming_banks(*sources, n_chunks=2, n_frame=N_FRAME,
+                                   chunk_steps=b.config.chunk_steps,
+                                   device='cpu')
+    with float64_features():
+        loop = TrainLoop(b, seed=0, banks=stream, mesh=mesh)
+        loop.state.module.double()
+        if mesh is None:
+            shares = Shares(b.config, ranks)
+            loop.train_step.features = shares
+            phase_gen = loop.phase_gen
+
+            def reseeded(epoch, training):
+                for r, g in enumerate(shares.gens):
+                    g.manual_seed(rank_seed([loop.seed, epoch,
+                                             int(training)], r))
+                return phase_gen(epoch, training)
+            loop.phase_gen = reseeded
+        hist = loop.fit(epochs=epochs, steps_per_epoch=steps, verbose=0)
+    return dict(numpy_state(loop.state),
+                logs=[{k: v for k, v in h.items() if k != 'time'}
+                      for h in hist],
+                chunk=stream.current_chunk, dispatches=stream.dispatches)
+
+
 def rank_checks(inputs: dict) -> dict:
     """Every check of one rank: the sharded train step with cross-replica
     and with per-replica BN statistics, the fused step with grad_accum 2
     and steps_per_call 2 on replicated f32 and sharded int8 banks, and the
-    evaluation over the mesh."""
+    evaluation over the mesh; where ``inputs`` asks for them, one se v9
+    fused step and a fit over a bank rotation."""
     mesh = mesh_lib.current()
     out = {'rank': mesh.rank, 'backend': mesh.backend}
     out['sharded'] = train_steps(inputs['cfg'], inputs['init'],
@@ -149,6 +259,11 @@ def rank_checks(inputs: dict) -> dict:
                                 inputs['sources'], 2, sharded, mesh)
     out['eval'] = eval_grids(inputs['eval_cfg'], inputs['eval_init'],
                              inputs['dev'], mesh)
+    if 'se_cfg' in inputs:
+        out['se'] = se_step(inputs['se_cfg'], inputs['sources'], mesh)
+    if 'stream_cfg' in inputs:
+        out['stream'] = stream_fit(inputs['stream_cfg'], inputs['sources'],
+                                   *inputs['stream_fit'], mesh)
     return out
 
 
@@ -376,3 +491,5 @@ def graph_checks(inputs: dict) -> dict:
             'capture_call': capture_call, 'replay_call': replay_call,
             'plain_call': plain_call, 'captures': captures}
     return out
+
+

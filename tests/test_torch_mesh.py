@@ -7,7 +7,8 @@ Every multi-process check runs in one 2-rank gloo mesh on the CPU
 (``ranks``: this process is rank 0, one child is rank 1, through a
 ``file://`` rendezvous under the test's tmp_path), on inputs made here
 with numpy and JAX, and returns what each rank computed
-(tests/_torch_mesh.py).
+(tests/_torch_mesh.py). tests/test_torch_mesh_sizes.py runs the same
+checks (``check_*``) on 3 and 4 ranks.
 
 Tolerances: the float64 mesh step against the one-process step on the
 same global batch within 1e-10 of each tensor's peak (the shares' means
@@ -57,16 +58,16 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope='module')
-def inputs(tmp_path_factory):
+def make_inputs(tmp_path_factory, batch: int, fused_batch: int) -> dict:
     """The ranks' inputs: vad v3 (base_fsize 8, td_dim 32) from JAX's
-    numpy-filled variables, two global batches of 8, spec sources for the
-    fused step, and the small vad v8 with a dev set of 3 clips."""
+    numpy-filled variables, two global batches of ``batch``, spec sources
+    for the fused step (``fused_batch``), and the small vad v8 with a dev
+    set of 3 clips."""
     jm = JVADModel(v=3, base_fsize=8, td_dim=32)
     variables = vad_variables(jm, SHAPE, seed=3)
     rng = np.random.default_rng(4)
-    batches = [(rng.standard_normal((8,) + SHAPE),
-                (rng.random((8, tm.N_FRAME // 32, 3)) > 0.5).astype(
+    batches = [(rng.standard_normal((batch,) + SHAPE),
+                (rng.random((batch, tm.N_FRAME // 32, 3)) > 0.5).astype(
                     np.float64)) for _ in range(2)]
     ev = tm.bundle(EVAL_CFG)
     ev.init(5)
@@ -75,61 +76,74 @@ def inputs(tmp_path_factory):
             torch.tensor([1.5, 0.0, -1.5]))
     dev = write_dev_set(tmp_path_factory.mktemp('dev'),
                         seconds=(2.0, 2.7, 3.3))
+    cfg = dict(CFG, batch_size=batch)
     return dict(
         variables=variables, batches=batches,
         init={k: v.double().numpy()
               for k, v in flax_to_state_dict(variables).items()},
-        cfg=CFG, sources=small_sources(1),
-        fused_cfg=dict(CFG, batch_size=4, grad_accum=2, steps_per_call=2),
+        cfg=cfg, sources=small_sources(1),
+        fused_cfg=dict(cfg, batch_size=fused_batch, grad_accum=2,
+                       steps_per_call=2),
         eval_cfg=EVAL_CFG, dev=str(dev),
         eval_init={k: v.numpy().copy()
                    for k, v in ev.module.state_dict().items()})
 
 
-@pytest.fixture(scope='module')
-def ranks(inputs, tmp_path_factory):
-    """What ranks 0 and 1 of one 2-rank CPU mesh computed."""
-    d = tmp_path_factory.mktemp('mesh')
+def run_ranks(inputs: dict, size: int, d) -> list:
+    """What the ranks of one ``size``-rank CPU mesh computed."""
     args = {k: v for k, v in inputs.items() if k != 'variables'}
-    return launch.run('_torch_mesh:rank_checks', (args,), ['cpu', 'cpu'],
+    return launch.run('_torch_mesh:rank_checks', (args,), ['cpu'] * size,
                       workdir=str(d))
 
 
 @pytest.fixture(scope='module')
-def one_process(inputs):
-    return (tm.train_steps(CFG, inputs['init'], inputs['batches']),
+def inputs(tmp_path_factory):
+    return make_inputs(tmp_path_factory, 8, 4)
+
+
+@pytest.fixture(scope='module')
+def ranks(inputs, tmp_path_factory):
+    """What ranks 0 and 1 of one 2-rank CPU mesh computed."""
+    return run_ranks(inputs, 2, tmp_path_factory.mktemp('mesh'))
+
+
+def one_process_run(inputs: dict):
+    return (tm.train_steps(inputs['cfg'], inputs['init'], inputs['batches']),
             tm.eval_grids(EVAL_CFG, inputs['eval_init'], inputs['dev']))
+
+
+@pytest.fixture(scope='module')
+def one_process(inputs):
+    return one_process_run(inputs)
 
 
 def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'int8'])
-def test_shard_banks_places_what_jax_places(dtype):
-    """Host-built banks split over 2 devices: device d's block of every
-    bank equals what JAX's ``shard_banks`` puts on its device d, the
-    cyclic padding included (5 voices -> 6, their labels with them; an
-    int8 bank's scales with it)."""
+def check_shard_banks(sources, dtype: str, size: int) -> None:
+    """Host-built banks split over ``size`` devices: device d's block of
+    every bank equals what JAX's ``shard_banks`` puts on its device d of
+    ``make_mesh(size)``, the cyclic padding included (the voices' labels
+    with them; an int8 bank's scales with it). Returns the whole banks."""
     from challenge_tpu.data.pipeline import build_banks as jbuild
     from challenge_tpu.parallel import mesh as jmesh
-    sources = small_sources(1)
-    jmesh_2 = jmesh.make_mesh(2)
+    jm = jmesh.make_mesh(size)
     jb = jmesh.shard_banks(jbuild(*sources, n_frame=tm.N_FRAME,
-                                  flat_dtype=dtype, host=True), jmesh_2)
+                                  flat_dtype=dtype, host=True), jm)
     pb = build_banks(*sources, n_frame=tm.N_FRAME, flat_dtype=dtype,
                      device='cpu')
 
     def block(x, d):
         return next(np.asarray(s.data) for s in x.addressable_shards
-                    if s.device == jmesh_2.devices[d])
-    for d in range(2):
-        got = mesh_lib.shard_banks(pb, mesh_lib.Mesh(('cpu', 'cpu'), d))
+                    if s.device == jm.devices[d])
+    for d in range(size):
+        got = mesh_lib.shard_banks(pb, mesh_lib.Mesh(('cpu',) * size, d))
         np.testing.assert_array_equal(got.voice_labels.numpy(),
                                       block(jb.voice_labels, d))
         for which in ('backgrounds', 'voices', 'noises'):
             g, j = getattr(got, which), getattr(jb, which)
-            assert g.n == j.lens.shape[0] // 2
+            assert g.n == j.lens.shape[0] // size
             np.testing.assert_array_equal(g.lens.numpy(), block(j.lens, d))
             np.testing.assert_array_equal(g.pos_mask.numpy(),
                                           block(j.pos_mask, d))
@@ -143,14 +157,22 @@ def test_shard_banks_places_what_jax_places(dtype):
                                               block(j.flat_scale, d))
             assert g.contig_exact_frames == getattr(pb,
                                                     which).contig_exact_frames
+    return pb
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'int8'])
+def test_shard_banks_places_what_jax_places(dtype):
+    """Host-built banks split over 2 devices as JAX's ``shard_banks``
+    splits them (5 voices -> 6, their labels with them; an int8 bank's
+    scales with it)."""
+    pb = check_shard_banks(small_sources(1), dtype, 2)
     assert pb.voices.n == 5
 
 
-@pytest.fixture(scope='module')
-def jax_run(inputs):
-    """JAX's ``make_sharded_train_step`` over ``make_mesh(2)`` of the host
-    devices, in float64, on the same init and global batches: the losses,
-    the state_dict and the Adam moments."""
+def jax_mesh_run(inputs: dict, size: int) -> dict:
+    """JAX's ``make_sharded_train_step`` over ``make_mesh(size)`` of the
+    host devices, in float64, on the same init and global batches: the
+    losses, the state_dict and the Adam moments."""
     from challenge_tpu.parallel import mesh as jmesh
     from challenge_tpu.parallel.train import make_sharded_train_step
     from challenge_tpu.train.state import TrainState as JState
@@ -158,9 +180,9 @@ def jax_run(inputs):
         jm = JVADModel(v=3, base_fsize=8, td_dim=32, dtype=jnp.float64)
         variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
                                  inputs['variables'])
-        mesh = jmesh.make_mesh(2)
-        step, opt = make_sharded_train_step(JBundle(jm, SHAPE,
-                                                    JConfig(**CFG)), mesh)
+        mesh = jmesh.make_mesh(size)
+        step, opt = make_sharded_train_step(
+            JBundle(jm, SHAPE, JConfig(**inputs['cfg'])), mesh)
         params = variables['params']
         # placed as the step's outputs are, so its second call reuses the
         # first one's program
@@ -183,6 +205,11 @@ def jax_run(inputs):
            for w in ('m', 'v')})
 
 
+@pytest.fixture(scope='module')
+def jax_run(inputs):
+    return jax_mesh_run(inputs, 2)
+
+
 def _assert_jax(got, ref):
     """float64 bounds of tests/test_torch_train.py."""
     np.testing.assert_allclose([float(m['loss']) for m in got['logs']],
@@ -200,25 +227,32 @@ def test_one_process_step_equals_jax_mesh_step(jax_run, one_process):
     _assert_jax(one_process[0], jax_run)
 
 
-def test_the_ranks_are_a_gloo_mesh_that_keeps_them_identical(ranks):
-    assert [r['rank'] for r in ranks] == [0, 1]
+def check_identical_ranks(ranks, size: int, names) -> None:
+    """A gloo mesh of ``size`` ranks whose states, optimizer slots and
+    logs in each of the runs ``names`` equal bit for bit."""
+    assert [r['rank'] for r in ranks] == list(range(size))
     assert {r['backend'] for r in ranks} == {'gloo'}
-    for name in ('sharded', 'fused_f32', 'fused_int8'):
-        a, b = ranks[0][name], ranks[1][name]
-        for part in ('sd', 'm', 'v'):
-            assert a[part].keys() == b[part].keys()
-            assert all(np.array_equal(a[part][k], b[part][k])
-                       for k in a[part]), (name, part)
-        for la, lb in zip(a['logs'], b['logs']):
-            assert all(np.array_equal(la[k], lb[k]) for k in la), name
+    for name in names:
+        a = ranks[0][name]
+        for b in ranks[1:]:
+            b = b[name]
+            for part in ('sd', 'm', 'v'):
+                assert a[part].keys() == b[part].keys()
+                assert all(np.array_equal(a[part][k], b[part][k])
+                           for k in a[part]), (name, part)
+            for la, lb in zip(a['logs'], b['logs']):
+                assert all(np.array_equal(la[k], lb[k]) for k in la), name
 
 
-def test_sharded_step_equals_the_one_process_step(inputs, ranks,
-                                                  one_process):
+def test_the_ranks_are_a_gloo_mesh_that_keeps_them_identical(ranks):
+    check_identical_ranks(ranks, 2, ('sharded', 'fused_f32', 'fused_int8'))
+
+
+def check_sharded_step(inputs, got, ref) -> None:
     """Loss and metrics, weights, BN running statistics and both Adam
-    moments after 2 float64 steps over the 2-rank mesh equal the
-    one-process steps on the same global batches."""
-    got, ref = ranks[0]['sharded'], one_process[0]
+    moments of the mesh run ``got`` against the one-process run ``ref``:
+    float64 within 1e-10 of each tensor's peak, the float32 outputs'
+    metrics within 1e-6."""
     assert got['step'] == ref['step'] == 2
     for lg, lr in zip(got['logs'], ref['logs']):
         np.testing.assert_array_equal(lg['f1_counts'], lr['f1_counts'])
@@ -233,18 +267,35 @@ def test_sharded_step_equals_the_one_process_step(inputs, ranks,
                for k in got['sd'] if 'running' in k)
 
 
+def test_sharded_step_equals_the_one_process_step(inputs, ranks,
+                                                  one_process):
+    """Loss and metrics, weights, BN running statistics and both Adam
+    moments after 2 float64 steps over the 2-rank mesh equal the
+    one-process steps on the same global batches."""
+    check_sharded_step(inputs, ranks[0]['sharded'], one_process[0])
+
+
+def check_per_replica(ranks, ref) -> None:
+    """The mesh step with each rank's BN statistics over its share only
+    (DDP's default): the ranks' running statistics part, and the weights
+    and loss leave the one-process step ``ref`` by far more than the
+    bound the cross-replica step holds."""
+    got = ranks[0]['per_replica']
+    for other in ranks[1:]:
+        other = other['per_replica']
+        assert not all(np.array_equal(got['sd'][k], other['sd'][k])
+                       for k in got['sd'] if 'running' in k)
+    assert _rel(got['logs'][0]['loss'], ref['logs'][0]['loss']) > 1e-3
+    worst = max(_rel(got['sd'][k], ref['sd'][k]) for k in ref['sd'])
+    assert worst > 1e-3
+
+
 def test_per_replica_statistics_fail_that_bound(ranks, one_process):
     """The same mesh step with each rank's BN statistics over its share
     only (DDP's default): the ranks' running statistics part, and the
     weights and loss leave the one-process step by far more than the
     bound the cross-replica step holds."""
-    got, ref = ranks[0]['per_replica'], one_process[0]
-    other = ranks[1]['per_replica']
-    assert not all(np.array_equal(got['sd'][k], other['sd'][k])
-                   for k in got['sd'] if 'running' in k)
-    assert _rel(got['logs'][0]['loss'], ref['logs'][0]['loss']) > 1e-3
-    worst = max(_rel(got['sd'][k], ref['sd'][k]) for k in ref['sd'])
-    assert worst > 1e-3
+    check_per_replica(ranks, one_process[0])
 
 
 def test_sharded_step_matches_jax_make_sharded_train_step(jax_run, ranks):
@@ -253,24 +304,33 @@ def test_sharded_step_matches_jax_make_sharded_train_step(jax_run, ranks):
         _assert_jax(r['sharded'], jax_run)
 
 
-def test_fused_mesh_step_accumulates_and_advances_as_jax(ranks):
+def check_fused(ranks, size: int) -> None:
     """grad_accum 2 and steps_per_call 2 over the mesh: each call advances
     the step by steps_per_call (JAX's scan, parallel/train.py:218-225),
     the optimizer counts the same steps, and with --bank_shard's int8
-    banks each rank holds half of the 5 voices padded to 6."""
+    banks each rank holds ceil(5 / size) of the 5 voices padded
+    cyclically."""
     for name in ('fused_f32', 'fused_int8'):
         for r in ranks:
             assert r[name]['step'] == r[name]['opt_step'] == 4
             assert all(np.isfinite(float(m['loss'])) for m in r[name]['logs'])
     assert ranks[0]['fused_f32']['n_voices'] == 5
-    assert [r['fused_int8']['n_voices'] for r in ranks] == [3, 3]
+    assert [r['fused_int8']['n_voices'] for r in ranks] == \
+        [-(-5 // size)] * size
 
 
-def test_evaluate_over_the_mesh_equals_one_process(ranks, one_process):
-    """3 clips over 2 ranks: the batched chain (one chunk, and chunks of
+def test_fused_mesh_step_accumulates_and_advances_as_jax(ranks):
+    """grad_accum 2 and steps_per_call 2 over the mesh: each call advances
+    the step by steps_per_call (JAX's scan, parallel/train.py:218-225),
+    the optimizer counts the same steps, and with --bank_shard's int8
+    banks each rank holds half of the 5 voices padded to 6."""
+    check_fused(ranks, 2)
+
+
+def check_eval(ranks, ref) -> None:
+    """3 clips over the mesh: the batched chain (one chunk, and chunks of
     2 clips), the per-clip chain and evaluate's ERs are the one-process
-    ones, on both ranks."""
-    ref = one_process[1]
+    ones ``ref``, on every rank."""
     assert any(g.any() for g in ref['grids'])
     for r in ranks:
         got = r['eval']
@@ -281,6 +341,13 @@ def test_evaluate_over_the_mesh_equals_one_process(ranks, one_process):
                 np.testing.assert_array_equal(a, b)
         for a, b in zip(got['per_clip'], ref['per_clip']):
             np.testing.assert_array_equal(a, b)
+
+
+def test_evaluate_over_the_mesh_equals_one_process(ranks, one_process):
+    """3 clips over 2 ranks: the batched chain (one chunk, and chunks of
+    2 clips), the per-clip chain and evaluate's ERs are the one-process
+    ones, on both ranks."""
+    check_eval(ranks, one_process[1])
 
 
 @pytest.mark.parametrize('target,match', [
