@@ -49,6 +49,7 @@ from torch import nn
 from challenge_tpu_torch.models.layers import (
     BatchNorm, BiGRU, Conv1d, Conv2d, ConvTranspose1d, FullyConnectedLayer,
     Linear, kernel_fan_in, lecun_normal_, remat_draw, set_compute_dtype)
+from challenge_tpu_torch.ops.bn_act import bn_act
 
 # (width_coefficient, depth_coefficient) per variant B0..B7
 SCALING = {
@@ -113,7 +114,9 @@ class MBConv(nn.Module):
     k x k, BN, swish, squeeze-excite (mean over H and W, 1x1 conv with
     bias down to max(1, int(f_in / 4)), swish, 1x1 conv with bias back,
     sigmoid, multiply), project 1x1 and BN; with stride 1 and f_in ==
-    f_out, stochastic depth and the residual add."""
+    f_out, stochastic depth and the residual add. Each BN, with its swish,
+    runs through :func:`~challenge_tpu_torch.ops.bn_act.bn_act` (on CUDA
+    the kernels of ``csrc/bn_swish.cu``)."""
 
     def __init__(self, kernel: int, f_in: int, f_out: int, expand_ratio: int,
                  stride: int, drop_rate: float = 0.0):
@@ -145,12 +148,12 @@ class MBConv(nn.Module):
         inputs = x
         convs, bns = iter(self.convs), iter(self.bns)
         if self.expand:
-            x = F.silu(next(bns)(next(convs)(x)))
-        x = F.silu(next(bns)(next(convs)(x)))
+            x = bn_act(next(bns), next(convs)(x))
+        x = bn_act(next(bns), next(convs)(x))
         se = x.mean(dim=(2, 3), keepdim=True)
         se = F.silu(next(convs)(se))
         x = x * torch.sigmoid(next(convs)(se))
-        x = next(bns)(next(convs)(x))
+        x = bn_act(next(bns), next(convs)(x), swish=False)
         if not self.residual:
             return x
         if self.drop_rate > 0 and self.training:
@@ -165,7 +168,8 @@ class EfficientNetBackbone(nn.Module):
     ``effnet.py:108-142``): NCHW [B, n_chan, H, W] -> [B,
     round_filters(1280), H / 32, W / 32] (each halving rounds up). Block b
     of all the stages' blocks drops at rate 0.2 * b / (the count of
-    blocks)."""
+    blocks). The stem's and the head's BN and swish run through
+    :func:`~challenge_tpu_torch.ops.bn_act.bn_act`, as the blocks' do."""
 
     def __init__(self, model: int = 0, in_ch: int = 2):
         super().__init__()
@@ -188,11 +192,18 @@ class EfficientNetBackbone(nn.Module):
         self.head = Conv2d(f_out, self.features, 1, bias=False)
         self.head_bn = BatchNorm(self.features)
 
+    def bn_act_counts(self):
+        """(BatchNorms followed by swish, BatchNorms without) that a
+        forward runs through ``bn_act``: the stem, the head, each block's
+        expand and depthwise BN; each block's project BN."""
+        blocks = len(self.blocks)
+        return 2 + blocks + sum(b.expand for b in self.blocks), blocks
+
     def forward(self, x, gen: Optional[torch.Generator] = None):
-        x = F.silu(self.stem_bn(self.stem(x)))
+        x = bn_act(self.stem_bn, self.stem(x))
         for block in self.blocks:
             x = block(x, gen)
-        return F.silu(self.head_bn(self.head(x)))
+        return bn_act(self.head_bn, self.head(x))
 
 
 class TimeAxisResample(nn.Module):

@@ -15,10 +15,10 @@ without the result line:
 
 1. build every hand-written CUDA kernel from challenge_tpu_torch/csrc with
    nvcc for sm_90a, one nvcc per source, all started together, and print
-   the build seconds and ptxas' report for all twelve instances
-   (csrc/synth.cu: magnitude, flat-complex output and the se triple;
-   csrc/synth_mel.cu: the fused mel; each for float32, bfloat16 and int8
-   banks);
+   the build seconds and ptxas' report for every instance (csrc/synth.cu:
+   magnitude, flat-complex output and the se triple; csrc/synth_mel.cu:
+   the fused mel; each for float32, bfloat16 and int8 banks;
+   csrc/bn_swish.cu: the backbone's BatchNorm + swish, phase 4h);
 2. make random spec banks on the card at a realistic size (32 backgrounds
    of 1,875 frames, 512 voices of 40-130 frames, 128 noises of 20-100,
    each [257, T, 4] float32, from a seed), as float32, bfloat16 and int8
@@ -96,6 +96,32 @@ without the result line:
    every parameter's gradient; the card's distance from float64 (largest
    over the peak) at most twice the CPU's, for the outputs with the loss
    and for the gradients;
+4h. the EfficientNet backbone's BatchNorm + swish kernels
+   (``csrc/bn_swish.cu`` through ``ops/bn_act.py``) at every distinct
+   BatchNorm of the density trainer's B4 (12 x 80 x 2,048 x 2 input, the
+   shapes and layouts its training forward hands them), in float32 and
+   bfloat16 (``BN`` line), in the layouts B4's training forward hands them
+   (channels_last from a contiguous batch, NCHW from the density
+   pipeline's), on per-channel activations of drawn means and spreads: the
+   forward output, the statistics (mean, mul), both running buffers after
+   3 training calls, the eval output, dx, dweight and dbias equal the plain
+   path's (``F.silu(bn(x))``, autograd) bit for bit (tolerance 0.0: the
+   kernels take every elementwise step and every sum in PyTorch's order),
+   with gradients in the input's layout and the head BN's, which comes
+   back as [B, W, H, C] in memory;
+   against the plain path in float64, each of them, the largest over B4's
+   BatchNorms, each within twice the plain path's largest distance from
+   float64 plus 1e-6 of the float64 peak (the two sum in another order;
+   bfloat16 outputs round alike; one shape's distance turns on the
+   roundings in its worst-conditioned channel, mean^2 over the variance,
+   so that either path may land 4 times the other's there); the backward
+   against ``bn_act_grad_plain`` fed the kernels' own statistics within
+   1e-5 of the peak (only the sums' order differs; bfloat16's dx within
+   one rounding step, 2^-8); a second run and a CUDA graph's replays bit
+   for bit; the launches of one training and one eval call; an eval-mode
+   backward against autograd's within 1e-5 of the peak; each kernel's
+   device time per B4 step (its shapes weighted by their counts) against
+   its bound at 3.35 TB/s, beside the plain path's forward and backward;
 5. the main path: ``get_model(Config(model_type='vad', v=8))`` at full width
    (base 48, td_dim 1024, 80 mels, 512 frames, batch 12),
    ``DevicePipeline`` and ``TrainLoop.fit`` for 5 training steps and 1
@@ -450,6 +476,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from challenge_tpu_torch import (
     Config, DevicePipeline, TrainLoop, build_banks, dryrun, get_model)
@@ -467,6 +494,7 @@ from challenge_tpu_torch.models.layers import BatchNorm, set_compute_dtype
 from challenge_tpu_torch.models.registry import ModelBundle, get_density_model
 from challenge_tpu_torch.models.senet import SECascade
 from challenge_tpu_torch.models.vad import VADModel
+from challenge_tpu_torch.ops import bn_act as ba
 from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.ops import synth as synth_lib
 from challenge_tpu_torch.ops.augment import batch_mask_keep
@@ -892,11 +920,16 @@ def feature_iter(banks, cfg, training: bool = True, fused_mel: bool = True,
         yield fn(gen, banks)
 
 
-def check_launches(what: str, launches: dict, expected: dict) -> None:
+def check_launches(what: str, launches: dict, expected: dict,
+                   bn: dict = None) -> None:
+    """Every launch but the BatchNorm kernels' (``bn_*``, phase 4h) must be
+    ``expected`` exactly; those must be ``bn`` where it is given."""
     log(f'{what} launches: {json.dumps(launches)}')
-    if launches != expected:
+    other = {k: v for k, v in launches.items() if not k.startswith('bn_')}
+    bns = {k: v for k, v in launches.items() if k.startswith('bn_')}
+    if other != expected or (bn is not None and bns != bn):
         raise AssertionError(f'{what}: launches {launches}, expected '
-                             f'{expected}')
+                             f'{expected} and BatchNorm launches {bn}')
 
 
 def mel_main_path(banks) -> dict:
@@ -1163,7 +1196,10 @@ def eff_main_path(banks) -> tuple:
                         validation_steps=val_steps, verbose=0)
         torch.cuda.synchronize()
         launches = dict(cuda.LAUNCHES)
-        check_launches(f'eff {name}', launches, {kernel: steps + val_steps})
+        check_launches(f'eff {name}', launches, {kernel: steps + val_steps},
+                       bn=ba.expected_launches(
+                           *loop.state.module.backbone.bn_act_counts(),
+                           'f32', steps, val_steps))
         res['eff_launches'][name] = launches
         logs = hist[0]
         if not all(math.isfinite(x) for k, x in logs.items() if k != 'time'):
@@ -3041,6 +3077,328 @@ def bf16_reference_check(dev) -> dict:
     return {'bf16_gaps': gaps}
 
 
+BN_TOL = 1e-6          # phase 4h: the kernels' largest distance from
+                       # float64 over twice the plain path's, times the
+                       # float64 peak
+BN_MIRROR_TOL = 1e-5   # phase 4h: the backward against bn_act_grad_plain
+BN_CALLS = 3           # phase 4h: training calls before the buffers' check
+BN_REPS = 20           # phase 4h: launches timed a shape and turn
+LAYOUT_NAMES = {0: 'nchw', 1: 'channels_last'}
+
+
+def bn_shapes(dev) -> dict:
+    """{(shape, layout, swish): count} of the BatchNorms that training
+    forwards of the density trainer's B4 (12 x 80 x 2,048 x 2) hand
+    ``bn_act``, as they hand them (``effnet.bn_act`` wrapped): one on a
+    contiguous batch (the backbone then runs channels_last) and one on a
+    batch laid out as the density pipeline's mel is, [B, T, 2, n_mels] in
+    memory (the backbone then runs NCHW)."""
+    from challenge_tpu_torch.models import effnet
+    model = get_density_model(density_config(), device=dev, seed=1).module
+    seen, real = {}, effnet.bn_act
+
+    def record(bn, x, swish=True):
+        key = (tuple(x.shape), ba.layout_of(x), bool(swish))
+        seen[key] = seen.get(key, 0) + 1
+        return real(bn, x, swish)
+    effnet.bn_act = record
+    try:
+        with torch.no_grad():
+            for x in (torch.randn((12, 80, 2048, 2), device=dev),
+                      torch.randn((12, 2048, 2, 80),
+                                  device=dev).permute(0, 3, 1, 2)):
+                model.train()(x, torch.Generator(device=dev).manual_seed(1))
+    finally:
+        effnet.bn_act = real
+    del model
+    return seen
+
+
+def bn_case(shape, layout: int, dtype, dev, seed: int):
+    """Activations of ``shape`` in ``layout`` whose channels have drawn
+    means (N(0, 1.5)) and spreads (U(0.3, 2)), as a conv's output has, and
+    a BatchNorm with drawn weights and running statistics."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    mean = torch.randn((1, c, 1, 1), generator=g, device=dev) * 1.5
+    std = torch.rand((1, c, 1, 1), generator=g, device=dev) * 1.7 + 0.3
+    x = torch.randn(shape, generator=g, device=dev) * std + mean
+    if layout:
+        x = x.contiguous(memory_format=torch.channels_last)
+    bn = BatchNorm(c).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+        bn.bias.copy_(torch.randn(c, generator=g, device=dev) * 0.3)
+        bn.running_mean.copy_(torch.randn(c, generator=g, device=dev) * 0.2)
+        bn.running_var.copy_(torch.rand(c, generator=g, device=dev) + 0.5)
+    bn.compute_dtype = None if dtype == torch.float32 else dtype
+    dout = torch.randn(shape, generator=g, device=dev).to(dtype)
+    if layout:          # the gradient a channels_last network hands back
+        dout = dout.contiguous(memory_format=torch.channels_last)
+    return x.to(dtype), bn, dout
+
+
+def bn_run(bn, x, dout, swish: bool, fn):
+    """``BN_CALLS`` training calls of ``fn(bn, x, swish)`` (the last one
+    differentiated against ``dout``), then an eval call: (the first
+    output, dx, dweight, dbias, running mean, running var, the eval
+    output)."""
+    outs = []
+    for i in range(BN_CALLS):
+        xg = x.detach().clone().requires_grad_(i == BN_CALLS - 1)
+        outs.append(fn(bn.train(), xg, swish))
+    grads = torch.autograd.grad(outs[-1], (xg, bn.weight, bn.bias),
+                                dout.to(outs[-1].dtype))
+    with torch.no_grad():
+        ev = fn(bn.eval(), x, swish)
+    return (outs[0].detach(), *grads, bn.running_mean.clone(),
+            bn.running_var.clone(), ev)
+
+
+def bn_plain(bn, x, swish: bool):
+    y = bn(x)
+    return F.silu(y) if swish else y
+
+
+def bn_kernel_calls(bn, x, dout, swish: bool):
+    """({name: (a call of that kernel alone on prepared buffers, the bytes
+    it must move at least)}, the buffers, which the caller keeps alive
+    while it makes the calls)."""
+    dt, act = ba.DTYPES[x.dtype], 'swish_' if swish else ''
+    c, size = x.shape[1], x.numel() * x.element_size()
+    stats = ba.batch_stats(bn.train(), x, False)
+    partials, block = ba.grad_sums(x, dout, stats, bn.bias, swish)
+    coef = ba.grad_coefficients((partials, block), stats, bn.weight,
+                                x.numel() // c, True)[2]
+    args = ba._reduction(x, dout)           # shape, splits, width, rows
+    keep = [stats, partials, coef, torch.empty_like(x), stats.clone(),
+            partials.clone(), coef.clone(), torch.empty_like(bn.weight),
+            torch.empty_like(bn.weight)]
+    out, stats2, partials2, coef2, dw, db = keep[3:]
+    p = [t.data_ptr() for t in (x, dout, bn.weight, bn.bias,
+                                bn.running_mean, bn.running_var)]
+    inv_n = 1.0 / (x.numel() // c)
+    elementwise = ba._elementwise(x, dout, out)
+    tiny = partials.numel() * 4 + c * 40       # partials, weights, stats
+
+    def run(entry, kind, *args):
+        return lambda: ba._run(entry, kind, 'bn_timing', *args)
+    return {
+        f'bn_stats_{dt}': (run(
+            f'bn_stats_{dt}', 'bn_stats', p[0], partials2.data_ptr(),
+            *args), size),
+        'bn_finalize': (run(
+            'bn_finalize', 'bn_finalize', partials.data_ptr(), None, None,
+            p[2], p[4], p[5], stats2.data_ptr(), c, *args[5:], 0, 0,
+            inv_n, 1e-3, 0.99, 0.01), tiny),
+        f'bn_{act}apply_{dt}': (run(
+            f'bn_apply_{dt}', 'bn_apply', p[0], out.data_ptr(),
+            stats.data_ptr(), p[4], p[5], p[2], p[3], 1e-3, 0, int(swish),
+            *elementwise), 2 * size),
+        f'bn_{act}grad_reduce_{dt}': (run(
+            f'bn_grad_reduce_{dt}', 'bn_grad_reduce', p[0], p[1],
+            stats.data_ptr(), p[3], partials2.data_ptr(), int(swish),
+            *args), 2 * size),
+        'bn_grad_finalize': (run(
+            'bn_grad_finalize', 'bn_grad_finalize', partials.data_ptr(),
+            None, None, None, stats.data_ptr(), p[2], dw.data_ptr(),
+            db.data_ptr(), coef2.data_ptr(), c, *args[5:], 0, inv_n),
+            tiny),
+        f'bn_{act}grad_input_{dt}': (run(
+            f'bn_grad_input_{dt}', 'bn_grad_input', p[0], p[1],
+            out.data_ptr(), stats.data_ptr(), p[3], coef.data_ptr(),
+            int(swish), *elementwise), 3 * size),
+    }, keep
+
+
+def bn_act_checks(dev) -> dict:
+    """Phase 4h (module docstring): returns the gaps, the launches of one
+    training and one eval call, and the times."""
+    t0 = time.perf_counter()
+    shapes = bn_shapes(dev)
+    res = {'shapes': [[list(k[0]), k[1], k[2], n]
+                      for k, n in sorted(shapes.items())],
+           'batchnorms': sum(shapes.values())}
+    log(f'BN shapes of B4 at 12 x 2,048: {json.dumps(res)}')
+    worst, mirror, times, fails, same = {}, {}, {}, [], {}
+    for dtype, dt in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+        # by layout: kernel -> [ms a B4 step, bound ms a step]; the two
+        # paths' passes, ms a B4 step
+        step = {lay: {} for lay in LAYOUT_NAMES.values()}
+        plain_ms = {lay: {'forward': 0.0, 'backward': 0.0}
+                    for lay in LAYOUT_NAMES.values()}
+        kernel_ms = copy.deepcopy(plain_ms)
+        for i, ((shape, layout, swish), count) in enumerate(
+                sorted(shapes.items())):
+            lay = LAYOUT_NAMES[layout]
+            x, bn0, dout = bn_case(shape, layout, dtype, dev, seed=i)
+            runs = {}
+            for key, fn in (('kernel', ba.bn_act), ('again', ba.bn_act),
+                            ('plain', bn_plain), ('f64', bn_plain)):
+                bn = copy.deepcopy(bn0)
+                xx, dd = x, dout
+                if key == 'f64':
+                    bn = bn.double()
+                    bn.compute_dtype = None
+                    xx, dd = x.double(), dout.double()
+                runs[key] = bn_run(bn, xx, dd, swish, fn)
+            names = ('out', 'dx', 'dweight', 'dbias', 'running_mean',
+                     'running_var', 'eval')
+            if not all(torch.equal(a, b) for a, b in zip(runs['kernel'],
+                                                         runs['again'])):
+                fails.append(f'{dt} {shape}: two runs differ')
+            ref = runs['f64']
+            for name, k, p, r in zip(names, runs['kernel'], runs['plain'],
+                                     ref):
+                peak = float(r.abs().max())
+                gk = float((k.double() - r).abs().max()) / peak
+                gp = float((p.double() - r).abs().max()) / peak
+                w = worst.setdefault(f'{dt}_{name}', [0.0, 0.0])
+                w[0], w[1] = max(w[0], gk), max(w[1], gp)
+                gap = float((k.double() - p.double()).abs().max()) / peak
+                same[f'{dt}_{name}'] = max(same.get(f'{dt}_{name}', 0.0), gap)
+                if gap != 0.0:
+                    fails.append(f'{dt} {shape} layout {layout} swish '
+                                 f'{swish}: {name} {gap} from the plain path')
+            # the statistics, and the backward against its plain mirror
+            bn = copy.deepcopy(bn0).train()
+            stats = ba.batch_stats(bn, x, False)
+            with torch.no_grad():
+                want = ba.bn_stats_plain(copy.deepcopy(bn0).double().train(),
+                                         x.double())
+                have = ba.bn_stats_plain(bn, x)
+            for j, name in ((0, 'mean'), (1, 'mul')):
+                peak = float(want[j].abs().max())
+                gk = float((stats[:, j].double() - want[j]).abs().max()) / peak
+                gp = float((have[j].double() - want[j]).abs().max()) / peak
+                w = worst.setdefault(f'{dt}_{name}', [0.0, 0.0])
+                w[0], w[1] = max(w[0], gk), max(w[1], gp)
+                if not torch.equal(stats[:, j], have[j]):
+                    fails.append(f'{dt} {shape} layout {layout}: {name} '
+                                 'differs from the plain path')
+            xg = x.detach().clone().requires_grad_(True)
+            out = ba.bn_act(bn, xg, swish)
+            got = torch.autograd.grad(out, (xg, bn.weight, bn.bias), dout)
+            plain = ba.bn_act_grad_plain(
+                dout, x, *stats.unbind(1), bn.weight.detach(),
+                bn.bias.detach(), swish, True, bn.compute_dtype)
+            for name, g, p in zip(('dx', 'dweight', 'dbias'), got, plain):
+                gap = float((g.double() - p.double()).abs().max()
+                            / p.double().abs().max())
+                mirror[f'{dt}_{name}'] = max(mirror.get(f'{dt}_{name}', 0.0),
+                                             gap)
+                tol = (2.0 ** -8 if name == 'dx' and dt == 'bf16'
+                       else BN_MIRROR_TOL)
+                if gap > tol:
+                    fails.append(f'{dt} {shape}: {name} {gap} from '
+                                 'bn_act_grad_plain')
+            # a CUDA graph of the forward and backward, replayed twice
+            if i in (0, len(shapes) - 1):
+                bn = copy.deepcopy(bn0).train()
+                xs = x.detach().clone().requires_grad_(True)
+                s = torch.cuda.Stream()
+                s.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(s):
+                    o = ba.bn_act(bn, xs, swish)
+                    eager = torch.autograd.grad(o, (xs,), dout)[0]
+                torch.cuda.current_stream().wait_stream(s)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    o = ba.bn_act(bn, xs, swish)
+                    captured = torch.autograd.grad(o, (xs,), dout)[0]
+                replays = []
+                for _ in range(2):
+                    graph.replay()
+                    replays.append(captured.clone())
+                if not all(torch.equal(r, eager) for r in replays):
+                    fails.append(f'{dt} {shape}: a graph replay differs from '
+                                 'the eager run')
+            # times: each kernel alone, and the two paths' passes
+            bn = copy.deepcopy(bn0)
+            calls, keep = bn_kernel_calls(bn, x, dout, swish)
+            for name, (call, nbytes) in calls.items():
+                ms = gpu_ms(call, [()], BN_REPS)
+                row = step[lay].setdefault(name, [0.0, 0.0])
+                row[0] += ms * count
+                row[1] += nbytes / HBM_BYTES_PER_S * 1e3 * count
+            for which, fn in (('plain', bn_plain), ('kernel', ba.bn_act)):
+                bn = copy.deepcopy(bn0).train()
+                xs = x.detach().clone().requires_grad_(True)
+                fwd = gpu_ms(lambda: fn(bn, xs, swish), [()], BN_REPS)
+                o = fn(bn, xs, swish)
+                bwd = gpu_ms(lambda: torch.autograd.grad(
+                    o, (xs, bn.weight, bn.bias), dout, retain_graph=True),
+                    [()], BN_REPS)
+                acc = (plain_ms if which == 'plain' else kernel_ms)[lay]
+                acc['forward'] += fwd * count
+                acc['backward'] += bwd * count
+            del x, bn0, dout, runs, keep
+        cuda.LAUNCHES.pop('bn_timing', None)
+        times[dt] = {lay: {'kernels_ms_a_step': {
+            k: {'ms': v[0], 'bound_ms': v[1], 'time_over_bound': v[0] / v[1]}
+            for k, v in step[lay].items()},
+            'plain_ms_a_step': plain_ms[lay],
+            'kernel_path_ms_a_step': kernel_ms[lay]}
+            for lay in LAYOUT_NAMES.values()}
+        log(f'BN times {dt}, B4 step (12 x 2,048): {json.dumps(times[dt])}')
+    # over B4's BatchNorms: a single shape's distance turns on which
+    # roundings land in its worst-conditioned channel (mean^2 over the
+    # variance), the largest over all of them does not
+    for name, (gk, gp) in worst.items():
+        if gk > 2 * gp + BN_TOL:
+            fails.append(f'{name}: {gk} from float64, the plain path {gp}')
+    # the launches of one training call and one eval call
+    x, bn, dout = bn_case((2, 48, 8, 16), 0, torch.float32, dev, 0)
+    cuda.reset_launch_counts()
+    xg = x.detach().clone().requires_grad_(True)
+    torch.autograd.grad(ba.bn_act(bn.train(), xg, True), (xg,), dout)
+    with torch.no_grad():
+        ba.bn_act(bn.eval(), x, True)
+    launches = dict(cuda.LAUNCHES)
+    want = ba.expected_launches(1, 0, 'f32', 1, 1)
+    check_launches('bn_act one training and one eval call', launches,
+                   {}, bn=want)
+    # the head BN's gradient comes back through the density head's
+    # permute as [B, W, H, C] in memory: bit for bit there too
+    for layout in (0, 1):
+        x, bn0, _ = bn_case((12, 1792, 3, 64), layout, torch.float32, dev, 8)
+        dout = torch.randn((12, 64, 3, 1792),
+                           device=dev).permute(0, 3, 2, 1)
+        got, want = [], []
+        for fn, out in ((ba.bn_act, got), (bn_plain, want)):
+            bn = copy.deepcopy(bn0).train()
+            xg = x.detach().clone().requires_grad_(True)
+            out += torch.autograd.grad(fn(bn, xg, True),
+                                       (xg, bn.weight, bn.bias), dout)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fails.append(f'the head BN\'s permuted gradient, layout {layout}'
+                         ': ' + str([float((g - w).abs().max())
+                                     for g, w in zip(got, want)]))
+    # an eval-mode backward (the statistics of the running buffers) against
+    # autograd of the plain eval forward
+    x, bn0, dout = bn_case((12, 144, 20, 512), 1, torch.float32, dev, 7)
+    got, want = [], []
+    for fn, out in ((ba.bn_act, got), (bn_plain, want)):
+        bn = copy.deepcopy(bn0).eval()
+        xg = x.detach().clone().requires_grad_(True)
+        out += torch.autograd.grad(fn(bn, xg, True),
+                                   (xg, bn.weight, bn.bias), dout)
+    res['eval_backward_gaps'] = [
+        float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    if max(res['eval_backward_gaps']) > BN_MIRROR_TOL:
+        fails.append(f'eval backward {res["eval_backward_gaps"]}')
+    res.update(gaps_from_plain=same,
+               gaps_from_float64={k: {'kernel': v[0], 'plain': v[1]}
+                                  for k, v in worst.items()},
+               grad_plain_gaps=mirror, times=times, launches=launches,
+               bn_4h_s=time.perf_counter() - t0)
+    log(f'phase 4h: {res["bn_4h_s"]:.3f} s')
+    if fails:
+        log('BN ' + json.dumps(res))
+        raise AssertionError('phase 4h: ' + '; '.join(fails))
+    return res
+
+
 def density_reference_check(dev) -> dict:
     """Phase 4f: the density model on the card against the CPU on a small
     input (batch 2, B0 with the density head and 2 gated layers, 40 mels,
@@ -3181,9 +3539,12 @@ def density_main_path(banks) -> dict:
     # the first steps at each conv shape include cuDNN's algorithm search
     res['density_first_fit_s'] = time.perf_counter() - t0
     launches = {'unfused': dict(cuda.LAUNCHES)}
+    bn_counts = loop.state.module.backbone.bn_act_counts()
     check_launches('density B4, float32 banks', launches['unfused'],
                    {KERNELS[torch.float32][0]: DENSITY_STEPS
-                    + DENSITY_VAL_STEPS})
+                    + DENSITY_VAL_STEPS},
+                   bn=ba.expected_launches(*bn_counts, 'f32', DENSITY_STEPS,
+                                           DENSITY_VAL_STEPS))
     logs = hist[0]
     if set(logs) != {'loss', 'cos_sim', 'val_loss', 'val_cos_sim', 'time'} \
             or not all(map(math.isfinite, logs.values())):
@@ -3198,7 +3559,9 @@ def density_main_path(banks) -> dict:
     torch.cuda.synchronize()
     launches['fused'] = dict(cuda.LAUNCHES)
     check_launches('density B4 fused mel, float32 banks', launches['fused'],
-                   {MEL_KERNELS[torch.float32]: DENSITY_FUSED_STEPS})
+                   {MEL_KERNELS[torch.float32]: DENSITY_FUSED_STEPS},
+                   bn=ba.expected_launches(*bn_counts, 'f32',
+                                           DENSITY_FUSED_STEPS))
     if not math.isfinite(hist[0]['loss']):
         raise AssertionError(f'density fused: {hist[0]}')
     res['density_launches'] = launches
@@ -4038,7 +4401,7 @@ def main(argv) -> int:
         f'{torch.cuda.get_device_name(0)}')
 
     # 1. build
-    secs = cuda.build(['synth', 'synth_mel'], verbose=True)
+    secs = cuda.build(['synth', 'synth_mel', 'bn_swish'], verbose=True)
     log(f'build: {secs:.3f} s')
 
     # 2. banks at a realistic size, in the three bank dtypes
@@ -4141,6 +4504,7 @@ def main(argv) -> int:
     bf16_ref = bf16_reference_check(dev)
     bf16_ref['bf16_4g_s'] = time.perf_counter() - t0
     log(f'phase 4g: {bf16_ref["bf16_4g_s"]:.3f} s')
+    bn_res = bn_act_checks(dev)
 
     # 5. the main path
     f32_kernel = KERNELS[torch.float32][0]
@@ -4412,6 +4776,7 @@ def main(argv) -> int:
         'density_launches': {**density['density_launches'],
                              'cli_int8': cli['density_int8_launches']},
         'card': smi}))
+    log('BN ' + json.dumps({**bn_res, 'card': smi}))
     log('FUSED ' + json.dumps({**fused_res, 'card': smi}))
     log('BF16 ' + json.dumps({
         **bf16_res, **bf16_ref,
