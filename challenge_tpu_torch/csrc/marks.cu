@@ -1,12 +1,14 @@
-// Phase marks: one empty kernel for each name of
-// challenge_tpu_torch/utils/profiling.py MARKS, in the same order.
+// Phase and layer marks: one empty kernel for each name of
+// challenge_tpu_torch/utils/profiling.py MARKS, then of LAYER_MARKS, in the
+// same order.
 //
 // A step launches them where its phases begin and end (the batch's
 // features, the forward and loss, the backward, the update, the validation
-// forward; utils.profiling.mark). A CUDA graph captures them with the rest
-// of the step, so every replay runs them, and a profiler trace of a replay,
-// which the host sees as one launch, shows on the device where each phase
-// begins and ends. Each kernel is extern "C", so its name in a trace is its
+// forward; utils.profiling.mark), and a model where one of its layers runs
+// (the se cascade's U-Net forward, and where the U-Net's backward begins).
+// A CUDA graph captures them with the rest of the step, so every replay
+// runs them, and a profiler trace of a replay, which the host sees as one
+// launch, shows on the device where each phase begins and ends. Each kernel is extern "C", so its name in a trace is its
 // plain name. A mark reads and writes nothing: one block of one thread
 // that returns, under 1 us of device time a launch on an H100.
 //
@@ -27,7 +29,10 @@
   X(mark_update_begin)       \
   X(mark_update_end)         \
   X(mark_val_forward_begin)  \
-  X(mark_val_forward_end)
+  X(mark_val_forward_end)    \
+  X(mark_unet_begin)         \
+  X(mark_unet_end)           \
+  X(mark_unet_backward_begin)
 
 #define MARK_KERNEL(NAME) extern "C" __global__ void NAME() {}
 MARKS(MARK_KERNEL)

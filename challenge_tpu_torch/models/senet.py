@@ -9,6 +9,10 @@ with the head frozen, finetune the head with the U-Net frozen. The
 frozen half's weights are held by the train step's gradient mask
 (``ModelBundle.trainable_mask``); its BatchNorms run in inference mode,
 which :meth:`SECascade.train` sets.
+
+The cascade launches the layer marks of ``utils.profiling``: the U-Net's
+forward between ``mark_unet_begin`` and ``mark_unet_end``, and
+``mark_unet_backward_begin`` where its backward begins.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from challenge_tpu_torch.models.layers import (
     BatchNorm, Conv2d, ConvMPBlock, ConvTranspose2d, kernel_fan_in,
     lecun_normal_, set_compute_dtype)
 from challenge_tpu_torch.models.vad import VADModel
+from challenge_tpu_torch.utils.profiling import mark
 
 WIDTHS = (64, 128, 256, 512)
 # each decoder's Upsampling stages as (input channels, channels)
@@ -89,6 +94,23 @@ class SpeechEnhancementModel(nn.Module):
         return decoder(self.ups[:4]), decoder(self.ups[4:])
 
 
+class _UNetBackwardMark(torch.autograd.Function):
+    """The identity on the U-Net's two outputs, whose backward launches
+    ``mark_unet_backward_begin``: autograd runs it once the gradients of
+    both outputs are in (the head's and the losses'), where the U-Net's own
+    backward begins."""
+
+    @staticmethod
+    def forward(ctx, speech, noise):
+        ctx.device = speech.device
+        return speech, noise
+
+    @staticmethod
+    def backward(ctx, d_speech, d_noise):
+        mark('mark_unet_backward_begin', ctx.device)
+        return d_speech, d_noise
+
+
 class SECascade(nn.Module):
     """The 'se' composite model (reference: sj_train.py:299-339).
 
@@ -132,7 +154,11 @@ class SECascade(nn.Module):
     def forward(self, x):
         # bf16 spectra -> compute_dtype or the weights' dtype
         x = x.to(self.compute_dtype or self.vad.td.weight.dtype)
+        mark('mark_unet_begin', x.device)
         speech, noise = self.se(x.permute(0, 3, 2, 1))   # [B, C, T, 256]
+        mark('mark_unet_end', x.device)
+        if speech.requires_grad:
+            speech, noise = _UNetBackwardMark.apply(speech, noise)
         speech = speech.permute(0, 3, 2, 1).float()      # [B, 256, T, 2]
         noise = noise.permute(0, 3, 2, 1).float()
         return self.vad(speech), speech, noise

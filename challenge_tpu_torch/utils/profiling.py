@@ -30,7 +30,15 @@ The program carries two instruments of its own:
   them with the step, so every replay runs them, traced or not; a replay is
   one launch on the host, and the marks split its device time by phase. On
   the CPU a mark does nothing. Marks are not counted in
-  ``ops.cuda.LAUNCHES``.
+  ``ops.cuda.LAUNCHES``;
+* layer marks (:data:`LAYER_MARKS`, launched by :func:`mark` too): where a
+  model's layer runs inside a phase. The se cascade
+  (``models/senet.py``) marks its U-Net's forward (``mark_unet_begin``,
+  ``mark_unet_end``) and where the U-Net's backward begins
+  (``mark_unet_backward_begin``, launched from the backward of an
+  identity on the U-Net's outputs): between it and
+  ``mark_backward_end`` lies the U-Net's backward, before it the head's
+  and the losses'.
 """
 
 from __future__ import annotations
@@ -52,7 +60,9 @@ MARKS = ('mark_input_begin', 'mark_input_end',
          'mark_backward_begin', 'mark_backward_end',
          'mark_update_begin', 'mark_update_end',
          'mark_val_forward_begin', 'mark_val_forward_end')
-_MARK_IDS = {name: i for i, name in enumerate(MARKS)}
+# the layer marks, in csrc/marks.cu's order after MARKS
+LAYER_MARKS = ('mark_unet_begin', 'mark_unet_end', 'mark_unet_backward_begin')
+_MARK_IDS = {name: i for i, name in enumerate(MARKS + LAYER_MARKS)}
 _NO_SPAN = contextlib.nullcontext()
 
 
@@ -66,11 +76,13 @@ def span(name: str):
 
 
 def mark(name: str, device: torch.device) -> None:
-    """Launch the phase mark ``name`` (one of :data:`MARKS`) on the current
-    stream of CUDA ``device``, the capturing stream while a graph captures;
-    nothing on another device."""
+    """Launch the mark ``name`` (one of :data:`MARKS` or
+    :data:`LAYER_MARKS`) on the current stream of CUDA ``device``, the
+    capturing stream while a graph captures; nothing on another device,
+    nor while ``torch.compile`` or ``torch.export`` traces the caller (a
+    traced program holds no marks)."""
     i = _MARK_IDS[name]
-    if device.type != 'cuda':
+    if device.type != 'cuda' or torch.compiler.is_compiling():
         return
     fn = cuda.load('marks').launch_mark
     if fn.argtypes is None:

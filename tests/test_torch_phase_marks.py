@@ -11,12 +11,17 @@ On the CPU, under ``torch.profiler`` with CPU activity:
   ``fit.capture`` inside the step that captures and not in a replay;
 * with no profiler running, a span is the shared null context and the
   program never calls ``record_function``;
-* a mark on the CPU launches nothing and counts nothing;
-* the mark names are the ones the benchmark's ``metrics/phases.py`` reads
-  and csrc/marks.cu's kernels, in order, and none holds ``synth_``.
+* a mark on the CPU launches nothing and counts nothing, and the se
+  cascade's forward and backward on the CPU call their U-Net marks and
+  launch none; ``torch.export`` of the se cascade traces no mark, even
+  one sent to a CUDA device;
+* the phase mark names are the ones the benchmark's ``metrics/phases.py``
+  reads, the layer mark names the ones its ``metrics/unet.py`` reads, and
+  csrc/marks.cu's kernels are both, in order; none holds ``synth_``.
 
 On the card (``-m cuda``; skipped elsewhere) a graphed train and eval
-step replayed under the profiler runs its marks in order in every replay.
+step replayed under the profiler runs its marks in order in every replay,
+the se cascade's U-Net marks among them.
 This file imports no JAX, so the card runs it with ``--noconftest``.
 """
 
@@ -30,7 +35,8 @@ import torch
 
 from challenge_tpu_torch.config import Config
 from challenge_tpu_torch.data.pipeline import DevicePipeline, build_banks
-from challenge_tpu_torch.models.registry import ModelBundle
+from challenge_tpu_torch.models import senet
+from challenge_tpu_torch.models.registry import ModelBundle, get_model
 from challenge_tpu_torch.models.vad import VADModel
 from challenge_tpu_torch.ops import cuda
 from challenge_tpu_torch.train import graph as graph_lib
@@ -39,7 +45,7 @@ from challenge_tpu_torch.train.loop import TrainLoop
 from challenge_tpu_torch.train.state import (
     TrainState, init_state, make_eval_step, make_train_step)
 from challenge_tpu_torch.utils import profiling
-from h100_bench.metrics import phases
+from h100_bench.metrics import phases, unet
 
 N_FRAME, N_MELS = 64, 32
 SHAPE = (N_MELS, N_FRAME, 2)
@@ -208,7 +214,7 @@ def test_mark_on_the_cpu_launches_nothing(monkeypatch):
         raise AssertionError(f'{name} loaded on the CPU')
     monkeypatch.setattr(cuda, 'load', refuse)
     cuda.reset_launch_counts()
-    for name in profiling.MARKS:
+    for name in profiling.MARKS + profiling.LAYER_MARKS:
         profiling.mark(name, torch.device('cpu'))
     loop = TrainLoop(_bundle(), seed=3, banks=_banks(), val_banks=_banks())
     loop.fit(epochs=1, steps_per_epoch=2, validation_steps=1, verbose=0)
@@ -217,12 +223,72 @@ def test_mark_on_the_cpu_launches_nothing(monkeypatch):
         profiling.mark('mark_nothing', torch.device('cpu'))
 
 
+def test_se_forward_on_the_cpu_calls_its_marks_and_launches_none(
+        monkeypatch):
+    """The se cascade's training forward and backward on the CPU: the
+    U-Net's marks are called, in order, on the CPU device, and nothing is
+    loaded or launched."""
+    def refuse(name):
+        raise AssertionError(f'{name} loaded on the CPU')
+    called = []
+
+    def recorded(name, device):
+        called.append((name, device.type))
+        profiling.mark(name, device)
+    monkeypatch.setattr(cuda, 'load', refuse)
+    monkeypatch.setattr(senet, 'mark', recorded)
+    cuda.reset_launch_counts()
+    torch.manual_seed(0)
+    module = senet.SECascade(pretrain=True).train()
+    x = torch.randn(2, 256, 32, 2)
+    cls, speech, noise = module(x)
+    (cls.sum() + speech.sum() + noise.sum()).backward()
+    with torch.no_grad():
+        module.eval()(x)
+    assert called == [('mark_unet_begin', 'cpu'), ('mark_unet_end', 'cpu'),
+                      ('mark_unet_backward_begin', 'cpu'),
+                      ('mark_unet_begin', 'cpu'), ('mark_unet_end', 'cpu')]
+    assert not cuda.LAUNCHES
+
+
+def test_se_export_traces_no_mark(monkeypatch):
+    """``torch.export`` of the se cascade's eval forward, its marks sent
+    to a CUDA device: the traced forward launches none (a ctypes launch
+    cannot be traced) and computes the eager forward's outputs, while the
+    same mark outside tracing reaches the kernel library."""
+    loads = []
+
+    def refuse(name):
+        loads.append(name)
+        raise AssertionError(f'{name} loaded')
+
+    def on_cuda(name, device):
+        profiling.mark(name, torch.device('cuda'))
+    torch.manual_seed(0)
+    module = senet.SECascade(pretrain=True).eval()
+    x = torch.randn(2, 256, 32, 2)
+    with torch.no_grad():
+        eager = module(x)
+        monkeypatch.setattr(cuda, 'load', refuse)
+        monkeypatch.setattr(senet, 'mark', on_cuda)
+        program = torch.export.export(module, (x,))
+        assert not loads
+        traced = program.module()(x)
+    for a, b in zip(traced, eager):
+        assert torch.equal(a, b)
+    with pytest.raises(AssertionError):
+        senet.mark('mark_unet_begin', torch.device('cpu'))
+    assert loads == ['marks']
+
+
 def test_mark_names_are_the_benchmarks_and_the_kernels():
     assert sorted(profiling.MARKS) == sorted(phases.MARKS)
-    assert len(set(profiling.MARKS)) == len(profiling.MARKS)
-    assert not [m for m in profiling.MARKS if 'synth_' in m]
+    assert sorted(profiling.LAYER_MARKS) == sorted(unet.MARKS)
+    every = profiling.MARKS + profiling.LAYER_MARKS
+    assert len(set(every)) == len(every)
+    assert not [m for m in every if 'synth_' in m]
     kernels = re.findall(r'^\s*X\((\w+)\)', MARKS_CU.read_text(), re.M)
-    assert tuple(kernels) == profiling.MARKS
+    assert tuple(kernels) == every
 
 
 @pytest.fixture
@@ -232,11 +298,11 @@ def cuda_device():
     return torch.device('cuda')
 
 
-def _device_marks(prof):
+def _device_marks(prof, names=profiling.MARKS):
     return [ev.name() for ev in sorted(prof.profiler.kineto_results.events(),
                                        key=lambda ev: ev.start_ns())
             if ev.device_type() == torch.autograd.DeviceType.CUDA
-            and ev.name() in profiling.MARKS]
+            and ev.name() in names]
 
 
 @pytest.mark.cuda
@@ -272,3 +338,39 @@ def test_replays_run_their_marks_in_order(cuda_device):
     assert _device_marks(prof) == 3 * step + 2 * ['mark_val_forward_begin',
                                                   'mark_val_forward_end']
     assert not [k for k in cuda.LAUNCHES if k.startswith('mark_')]
+
+
+@pytest.mark.cuda
+def test_se_replays_run_their_unet_marks_in_order(cuda_device):
+    """The se cascade's graphed pretrain step and eval step: each replay
+    runs the U-Net's marks inside its forward, and the U-Net backward's
+    mark inside its backward."""
+    cfg = Config(model_type='se', v=9, n_frame=32, batch_size=2,
+                 pretrain=True)
+    bundle = get_model(cfg, device=cuda_device)
+    state = init_state(bundle, 3)
+    train, val = make_train_step(bundle), make_eval_step(bundle)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((2, 256, 32, 2), generator=gen, device=cuda_device)
+    y = ((torch.rand((2, 1, 3), generator=gen, device=cuda_device) > 0.5)
+         .float(),
+         torch.randn((2, 256, 32, 1), generator=gen, device=cuda_device),
+         torch.randn((2, 256, 32, 1), generator=gen, device=cuda_device))
+    train(state, (x, y))
+    val(state, (x, y))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            train(state, (x, y))
+        val(state, (x, y))
+        torch.cuda.synchronize()
+    assert train.graphs.captures == 1 and val.graphs.captures == 1
+    step = ['mark_forward_begin', 'mark_unet_begin', 'mark_unet_end',
+            'mark_forward_end', 'mark_backward_begin',
+            'mark_unet_backward_begin', 'mark_backward_end',
+            'mark_update_begin', 'mark_update_end']
+    assert _device_marks(prof, profiling.MARKS + profiling.LAYER_MARKS) \
+        == 2 * step + ['mark_val_forward_begin', 'mark_unet_begin',
+                       'mark_unet_end', 'mark_val_forward_end']
